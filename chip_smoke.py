@@ -8,18 +8,24 @@ Run from the root of a checkout:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the port's CUDA kernels from ``infinistore_tpu_torch/ops/
-   csrc`` (one ``nvcc`` per source, in parallel) and print the card's name
-   and power limit;
+   csrc`` (one ``nvcc`` per source, in parallel), print the card's name
+   and power limit, and count each kernel's tensor-core instructions
+   (``cuobjdump -sass``: HGMMA, HMMA); the bf16 flash kernels must hold
+   HGMMA;
 2. kernels: every kernel against its plain PyTorch version on the card at
    the main path's shapes (H=32, H_kv=8, D=128, T=16), bf16 and f32, with
    the kernel's, the plain version's and a one-call PyTorch yardstick's
-   median times beside the least time the card could take; K4 also
-   ``torch.equal`` to 32 K1 launches on the same inputs;
+   median device times beside the least time the card could take; K3 and
+   K2 also at the serving path's own chunk shapes beside SDPA, with
+   TFLOP/s and share of the bound; K4 also ``torch.equal`` to 32 K1
+   launches on the same inputs;
 3. model path: Llama-3-8B at full width and depth with random bf16 weights
    (seeded ``torch.Generator``) served through ``InferenceEngine`` and
    ``Scheduler`` for 8 requests (shared prefix, chunked prefill, mixed
    greedy and top-k/top-p sampling), with every kernel's launch count over
-   that run, and one greedy decode step held against a cold prefill;
+   that run, and one greedy decode step held against a cold prefill; then
+   a cold 1500-token prefill and a B=8 decode step split by kind of
+   kernel under ``torch.profiler``;
 4. overhead path: ``bench_gpu.leg_invocation_overhead`` (32 K1 launches in
    a CUDA graph, the same eagerly, one K4 launch, the plain version) and
    what a graph would win back of the decode step profiled in phase 3;
@@ -74,11 +80,16 @@ def card_line() -> str:
 
 def median_ms(torch, fn, reps: int, flush) -> float:
     """Median over ``reps`` single calls timed with CUDA events, L2 flushed
-    before each (the main path finds each layer's tensors cold)."""
+    before each (the main path finds each layer's tensors cold).  The card
+    first spins for about 100 us, so the host has enqueued the call before
+    the start event is reached: the time is the device's alone, not the
+    wrapper's host work (tens of us, which on the serving path overlaps the
+    kernels before it)."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(200_000)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -103,8 +114,20 @@ def phase_build(build) -> None:
           f"into {build.BUILD_DIR}")
     for name in paths:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "Performance")):
                 print(f"[build] {name}: {line.strip()}")
+    # tensor-core instructions in the compiled kernels: HGMMA (wgmma) and
+    # HMMA (mma.sync), per kernel as cuobjdump -sass lists them
+    for name in paths:
+        counts = build.sass_counts(name)
+        for fn, c in counts.items():
+            print(f"[build] {name} SASS {fn}: HGMMA {c['HGMMA']}, "
+                  f"HMMA {c['HMMA']}")
+        if name == "flash_attention":
+            bf16 = [c for fn, c in counts.items() if "bf16_kernel" in fn]
+            check(bf16 and all(c["HGMMA"] > 0 for c in bf16),
+                  f"the bf16 flash kernels hold no wgmma (HGMMA): {counts}")
 
 
 def _paged_inputs(torch, np, dtype, dev):
@@ -180,6 +203,31 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             enable_gqa=True, **kw).transpose(1, 2)
 
+    def k2_mask(pad, plen, Sq):
+        k_pos = torch.arange(pad + Sq, device=dev)
+        i = torch.arange(Sq, device=dev)[:, None]
+        return (k_pos[None] < plen) | ((k_pos[None] >= pad)
+                                       & (k_pos[None] - pad <= i))
+
+    def flash_timing(label, call, library, plain, Sq, kv_rows, pairs,
+                     reps=20):
+        """Median ms of the kernel and of its SDPA yardstick (and of the
+        plain version when given) beside the bound; prints TFLOP/s and the
+        share of the bound.  ``kv_rows``: the K/V rows the visible pairs
+        need, ``pairs``: the visible (query, key) pairs per head."""
+        flops = 4.0 * H * D * pairs
+        b_ms, b_by = bound_ms(esize * (2 * Sq * H * D + 2 * kv_rows * Hkv * D),
+                              flops)
+        ms = median_ms(torch, call, reps, flush)
+        lib_ms = median_ms(torch, library, reps, flush)
+        print(f"[kernels] {label}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {100 * b_ms / ms:.1f}% of the bound ({b_ms:.4f} ms "
+              f"by {b_by}); SDPA {lib_ms:.4f} ms, {flops / lib_ms / 1e9:.1f} "
+              f"TFLOP/s; kernel/SDPA {ms / lib_ms:.2f}x")
+        return dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    plain_ms=median_ms(torch, plain, 5, flush) if plain
+                    else None)
+
     # ---- K3: causal flash prefill, Sq = Sk = 2048, and a ragged q_offset case
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = qkv(dtype, 1, 700, 1048, 3)
@@ -191,20 +239,15 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
         err = compare("K3 flash_causal Sq=Sk=2048", got,
                       ca.causal_attention_xla(q, k, v), dtype)
     S = 2048
-    pairs = S * (S + 1) / 2
-    b_ms, b_by = bound_ms(esize * (2 * S * H * D + 2 * S * Hkv * D),
-                          4.0 * H * D * pairs)
     rec["flash_causal"] = dict(
         name="flash_causal_attention_cuda",
         source=REPO_SOURCE + "flash_attention.cu",
         replaces=TPU_SOURCE + "333", max_abs_err=err,
-        ms=median_ms(torch, lambda: ca.flash_causal_attention_cuda(q, k, v),
-                     10, flush),
-        plain_ms=median_ms(torch, lambda: ca.causal_attention_xla(q, k, v), 5,
-                           flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(torch, lambda: sdpa(q, k, v, is_causal=True), 10,
-                             flush),
+        **flash_timing("K3 bf16 Sq=Sk=2048",
+                       lambda: ca.flash_causal_attention_cuda(q, k, v),
+                       lambda: sdpa(q, k, v, is_causal=True),
+                       lambda: ca.causal_attention_xla(q, k, v),
+                       S, S, S * (S + 1) / 2),
     )
 
     # ---- K2: prefix flash prefill, prefix_pad=1024, prefix_len=700, Sq=512
@@ -214,24 +257,43 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
         got = ca.flash_prefix_attention_cuda(q, k, v, pad, plen)
         err = compare("K2 flash_prefix", got, ca.causal_attention_xla(
             q, k, v, prefix_pad=pad, prefix_len=plen), dtype)
-    k_pos = torch.arange(pad + Sq, device=dev)
-    i = torch.arange(Sq, device=dev)[:, None]
-    mask = (k_pos[None] < plen) | ((k_pos[None] >= pad) & (k_pos[None] - pad <= i))
-    pairs = plen * Sq + Sq * (Sq + 1) / 2
-    b_ms, b_by = bound_ms(esize * (2 * Sq * H * D + 2 * (plen + Sq) * Hkv * D),
-                          4.0 * H * D * pairs)
+    mask = k2_mask(pad, plen, Sq)
     rec["flash_prefix"] = dict(
         name="flash_prefix_attention_cuda",
         source=REPO_SOURCE + "flash_attention.cu",
         replaces=TPU_SOURCE + "247", max_abs_err=err,
-        ms=median_ms(torch, lambda: ca.flash_prefix_attention_cuda(
-            q, k, v, pad, plen), 10, flush),
-        plain_ms=median_ms(torch, lambda: ca.causal_attention_xla(
-            q, k, v, prefix_pad=pad, prefix_len=plen), 5, flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 10,
-                             flush),
+        **flash_timing("K2 bf16 pad=1024 len=700 Sq=512",
+                       lambda: ca.flash_prefix_attention_cuda(
+                           q, k, v, pad, plen),
+                       lambda: sdpa(q, k, v, attn_mask=mask),
+                       lambda: ca.causal_attention_xla(
+                           q, k, v, prefix_pad=pad, prefix_len=plen),
+                       Sq, plen + Sq, plen * Sq + Sq * (Sq + 1) / 2),
     )
+
+    # ---- K3 and K2 at the serving path's own shapes: a cold 1500-token
+    # prompt in 512-token chunks runs K3 at Sq = Sk = 512, then K2 over a
+    # 512- and a 1024-row bucket (bf16, as the model path runs them)
+    q, k, v = qkv(torch.bfloat16, 1, 512, 512, 7)
+    compare("K3 flash_causal Sq=Sk=512", ca.flash_causal_attention_cuda(
+        q, k, v), ca.causal_attention_xla(q, k, v), torch.bfloat16)
+    flash_timing("K3 bf16 Sq=Sk=512 (serving)",
+                 lambda: ca.flash_causal_attention_cuda(q, k, v),
+                 lambda: sdpa(q, k, v, is_causal=True), None,
+                 512, 512, 512 * 513 / 2)
+    for pad, plen, Sq in ((512, 512, 512), (1024, 1024, 480)):
+        q, k, v = qkv(torch.bfloat16, 1, Sq, pad + Sq, 8)
+        compare(f"K2 flash_prefix pad={pad} len={plen} Sq={Sq}",
+                ca.flash_prefix_attention_cuda(q, k, v, pad, plen),
+                ca.causal_attention_xla(q, k, v, prefix_pad=pad,
+                                        prefix_len=plen), torch.bfloat16)
+        mask = k2_mask(pad, plen, Sq)
+        flash_timing(f"K2 bf16 pad={pad} len={plen} Sq={Sq} (serving)",
+                     lambda: ca.flash_prefix_attention_cuda(
+                         q, k, v, pad, plen),
+                     lambda: sdpa(q, k, v, attn_mask=mask), None,
+                     Sq, plen + Sq, plen * Sq + Sq * (Sq + 1) / 2)
+    del q, k, v, mask
     # ---- K4: K1 over all 32 layers in one launch, at the overhead leg's
     # shapes (B=8, a 1024-token context on distinct pages for each row)
     for dtype in (torch.float32, torch.bfloat16):
@@ -389,24 +451,70 @@ def phase_model(torch, ca, dev, card: str, params, cfg, pc):
     return launches, prof
 
 
+def _device_time_by_kind(torch, prof):
+    """Device ms by kind (matmul, K1, K3, K2, other), per-kernel rows (ms,
+    count, name) and the kernel count of a ``torch.profiler`` trace."""
+    groups: dict = {}
+    top = []
+    n_kernels = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us <= 0 or getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        name = e.key.lower()
+        kind = ("K1 paged_decode" if "paged_decode" in name else
+                "K3 flash_causal" if "flash_causal" in name else
+                "K2 flash_prefix" if "flash_prefix" in name else
+                "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                    "nvjet", "cutlass",
+                                                    "splitk"))
+                else "other")
+        groups[kind] = groups.get(kind, 0.0) + us / 1e3
+        top.append((us / 1e3, e.count, e.key[:60]))
+    return groups, top, n_kernels
+
+
 def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
-    """Where a decode step's time goes at B=8: the same ``steps``-token
-    ``decode_batch`` timed bare and under ``torch.profiler``; device time by
-    kernel from the trace, busy share against the bare wall time.  Returns
-    ms/step bare and busy and kernels/step (empty when the profiler saw no
-    device time)."""
+    """Where a cold prefill's and a decode step's time go.  A fresh
+    1500-token prompt prefilled bare, then another under ``torch.profiler``
+    (device time by kind); the same ``steps``-token ``decode_batch`` at B=8
+    timed bare and under the profiler, busy share against the bare wall
+    time.  Returns the decode step's ms/step bare and busy and kernels/step
+    (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     # a cold prefill of a fresh 1500-token prompt: 512-token chunks, the
     # first through K3, the others through K2
-    fresh = torch.randint(0, engine.cfg.vocab_size, (1500,),
-                          generator=torch.Generator().manual_seed(7)).tolist()
+    def fresh(seed):
+        return torch.randint(0, engine.cfg.vocab_size, (1500,),
+                             generator=torch.Generator().manual_seed(seed)
+                             ).tolist()
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.release(engine.prefill(fresh))
+    engine.release(engine.prefill(fresh(7)))
     torch.cuda.synchronize()
     print(f"[profile] cold prefill of 1500 tokens (3 chunks of 512): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.release(engine.prefill(fresh(9)))
+        torch.cuda.synchronize()
+    groups, top, n_kernels = _device_time_by_kind(torch, prof)
+    busy = sum(groups.values())
+    if busy:
+        by_kind = {k: round(v, 4) for k, v in sorted(groups.items(),
+                                                     key=lambda kv: -kv[1])}
+        print(f"[profile] cold prefill of 1500 tokens, device time "
+              f"{busy:.3f} ms in {n_kernels} kernels; ms by kind "
+              f"{json.dumps(by_kind)}")
+        for ms, n, name in sorted(top, reverse=True)[:6]:
+            print(f"[profile]   {ms:8.4f} ms  {n:5d}  {name}")
+    else:
+        print("[profile] the profiler saw no device time in the prefill: "
+              "not measured")
+
     states = [engine.prefill(p) for p in prompts]  # local prefix hits
     engine.decode_batch(states, 2)
     torch.cuda.synchronize()
@@ -419,23 +527,8 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
         torch.cuda.synchronize()
     for st in states:
         engine.release(st)
-    groups: dict = {}
-    top = []
-    n_kernels = 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if us <= 0 or getattr(e, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
-            continue
-        n_kernels += e.count
-        name = e.key.lower()
-        kind = ("K1 paged_decode" if "paged_decode" in name else
-                "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
-                                                    "nvjet", "cutlass",
-                                                    "splitk"))
-                else "other")
-        groups[kind] = groups.get(kind, 0.0) + us / 1e3
-        top.append((us / 1e3 / steps, e.count // steps, e.key[:60]))
+    groups, top, n_kernels = _device_time_by_kind(torch, prof)
+    top = [(ms / steps, n // steps, name) for ms, n, name in top]
     busy = sum(groups.values())
     if not busy:
         print("[profile] the profiler saw no device time: not measured")

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,7 +30,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_attention": "flash_attention.cu",
 }
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -95,6 +96,27 @@ def build_log(name: str) -> str:
     library's build, once built."""
     log = _library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_counts(name: str, ops=("HGMMA", "HMMA")) -> Dict[str, Dict[str, int]]:
+    """Per kernel of the built library ``name`` (mangled name): how many
+    SASS instructions of each opcode in ``ops`` ``cuobjdump -sass`` finds.
+    HGMMA is ``wgmma`` on the tensor cores, HMMA ``mma.sync``."""
+    cuobjdump = Path(_nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 // Shared device helpers of the attention kernels (paged_decode.cu,
 // flash_attention.cu): element conversion, 16-byte tile loads, and the one
-// fp32 online-softmax update every kernel folds its score tiles through, so
-// the three kernels' numerics cannot drift apart (the TPU kernels share
+// fp32 online-softmax update every kernel folds its score tiles through (in
+// base e, or base 2 for the tensor-core kernel), so the kernels' numerics
+// cannot drift apart (the TPU kernels share
 // _online_softmax_step in infinistore_tpu/ops/pallas_attention.py:52-65 for
 // the same reason).
 #pragma once
@@ -74,6 +75,24 @@ __device__ __forceinline__ float online_softmax_rescale(float& m,
 // the updated running max (0 for a masked score).
 __device__ __forceinline__ float online_softmax_prob(float s, float m) {
   return expf(s - m);
+}
+
+// The same update in base 2, for scores that are not pre-scaled: ``c`` =
+// scale * log2(e), so exp2(c * (s - m)) = exp(scale * (s - m)) and the scale
+// costs one FMA per score.  ``m`` is the running max of the raw scores.
+__device__ __forceinline__ float online_softmax_rescale_log2(float& m,
+                                                            float tile_max,
+                                                            float c) {
+  const float m_new = fmaxf(m, tile_max);
+  const float corr = exp2f((m - m_new) * c);
+  m = m_new;
+  return corr;
+}
+
+// ``mc`` = m * c, taken once per row.
+__device__ __forceinline__ float online_softmax_prob_log2(float s, float mc,
+                                                         float c) {
+  return exp2f(fmaf(s, c, -mc));
 }
 
 }  // namespace istpu

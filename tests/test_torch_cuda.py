@@ -10,8 +10,7 @@ it runs as:
 
 Tolerances: bf16 atol = rtol = 2e-2 (the plain versions round the QK and PV
 products to bf16, the kernels accumulate in fp32); fp32 atol = rtol = 1e-4
-(the kernels sum over up to a few hundred keys in another order than
-cuBLAS).
+(the kernels sum over up to about 1500 keys in another order than cuBLAS).
 """
 
 import numpy as np
@@ -76,44 +75,63 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, D, n_rep, T):
     assert float(got[-1].abs().max()) == 0.0  # the pad row writes zeros
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D,n_rep,Sq,q_offset", [
-    (128, 4, 300, 0), (128, 4, 77, 190), (64, 2, 129, 0), (128, 1, 1, 0),
-])
-def test_flash_causal_kernel_matches_plain(dev, dtype, D, n_rep, Sq, q_offset):
-    rng = np.random.default_rng(Sq)
+# head sizes and query heads per KV head of the flash cases (H_kv = 2)
+_FLASH_HEADS = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 1), (128, 4),
+                (128, 8)]
+# K3: Sq on both sides of the 64-row warpgroup and 128-row block edges, at
+# q_offset 0 and 190 (not a tile multiple), and the store tail (16 rows at
+# q_offset 1488)
+_K3_SHAPES = [(Sq, off) for off in (0, 190)
+              for Sq in (1, 16, 63, 64, 65, 127, 128, 129, 512)] + [
+    (16, 1488), (300, 0), (77, 190)]
+# K2: prefix_len around the 128-row tile edge and at prefix_pad, with
+# prefix_pad 64 and 192 not multiples of the tile
+_K2_SHAPES = [(pad, plen, (1, 65, 130, 200, 480)[i % 5])
+              for i, (pad, plen) in enumerate(
+                  (pad, plen) for pad in (64, 192, 512, 1024)
+                  for plen in sorted({0, 1, 127, 128, 129, pad}) if plen <= pad)
+              ] + [(128, 70, 100), (128, 128, 64), (256, 0, 40), (64, 63, 200),
+                   (512, 512, 512), (1024, 1024, 480), (1024, 700, 512)]
+
+
+def _flash_inputs(seed, B, Sq, Sk, n_rep, D, dtype, dev):
+    rng = np.random.default_rng(seed)
     Hkv = 2
-    Sk = q_offset + Sq
-    q = torch.from_numpy(rng.standard_normal((2, Sq, Hkv * n_rep, D),
-                                             np.float32)).to(dev, dtype)
-    k = torch.from_numpy(rng.standard_normal((2, Sk, Hkv, D),
-                                             np.float32)).to(dev, dtype)
-    v = torch.from_numpy(rng.standard_normal((2, Sk, Hkv, D),
-                                             np.float32)).to(dev, dtype)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, dtype) for shape in ((B, Sq, Hkv * n_rep, D), (B, Sk, Hkv, D),
+                                  (B, Sk, Hkv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,n_rep", _FLASH_HEADS)
+@pytest.mark.parametrize("Sq,q_offset", _K3_SHAPES)
+def test_flash_causal_kernel_matches_plain(dev, dtype, D, n_rep, Sq, q_offset):
+    """K3 against its plain version; two launches on the same inputs are
+    bitwise equal (no atomics, no order that depends on the run)."""
+    q, k, v = _flash_inputs(Sq, 2, Sq, q_offset + Sq, n_rep, D, dtype, dev)
     ca.reset_launches()
     got = ca.flash_causal_attention_cuda(q, k, v, q_offset=q_offset)
+    again = ca.flash_causal_attention_cuda(q, k, v, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert ca.LAUNCHES["flash_causal"] == 1
+    assert ca.LAUNCHES["flash_causal"] == 2
+    assert torch.equal(got, again)
     _close(got, ca.causal_attention_xla(q, k, v, q_offset=q_offset), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("prefix_pad,plen,Sq", [
-    (128, 70, 100), (128, 128, 64), (256, 0, 40), (64, 63, 200),
-])
-def test_flash_prefix_kernel_matches_plain(dev, dtype, prefix_pad, plen, Sq):
-    rng = np.random.default_rng(plen)
-    H, Hkv, D = 8, 2, 128
-    q = torch.from_numpy(rng.standard_normal((1, Sq, H, D),
-                                             np.float32)).to(dev, dtype)
-    k = torch.from_numpy(rng.standard_normal((1, prefix_pad + Sq, Hkv, D),
-                                             np.float32)).to(dev, dtype)
-    v = torch.from_numpy(rng.standard_normal((1, prefix_pad + Sq, Hkv, D),
-                                             np.float32)).to(dev, dtype)
+@pytest.mark.parametrize("D,n_rep", _FLASH_HEADS)
+@pytest.mark.parametrize("prefix_pad,plen,Sq", _K2_SHAPES)
+def test_flash_prefix_kernel_matches_plain(dev, dtype, D, n_rep, prefix_pad,
+                                           plen, Sq):
+    """K2 against its plain version, bitwise equal across two launches."""
+    q, k, v = _flash_inputs(plen, 1, Sq, prefix_pad + Sq, n_rep, D, dtype,
+                            dev)
     ca.reset_launches()
     got = ca.flash_prefix_attention_cuda(q, k, v, prefix_pad, plen)
+    again = ca.flash_prefix_attention_cuda(q, k, v, prefix_pad, plen)
     torch.cuda.synchronize()
-    assert ca.LAUNCHES["flash_prefix"] == 1
+    assert ca.LAUNCHES["flash_prefix"] == 2
+    assert torch.equal(got, again)
     want = ca.causal_attention_xla(q, k, v, prefix_pad=prefix_pad,
                                    prefix_len=plen)
     _close(got, want, dtype)
