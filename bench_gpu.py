@@ -18,10 +18,16 @@ Legs:
   same L launches issued eagerly, as ONE K4 launch, and through the plain
   PyTorch version.  Iterations are chained (``qs*0.999 + 0.001*o``) and
   timed with CUDA events.
+* ``leg_paged_decode``: K1's device time at three shapes of Llama-3-8B's
+  decode attention (``DECODE_SHAPES``), each with the bytes it must read
+  and the split count, and at each candidate split size; K4 at each
+  candidate too.  Median of single calls timed with CUDA events, L2
+  flushed before each, host enqueue hidden (``median_device_ms``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import sys
@@ -46,6 +52,136 @@ def overhead_inputs(torch, dev, dtype, seed: int = 0):
     table = (1 + torch.arange(B * P, dtype=torch.int32, device=dev)).view(B, P)
     lens = torch.full((B,), P * T, dtype=torch.int32, device=dev)
     return qs, cache, table, lens
+
+
+# K1's timed shapes (H=32, H_kv=8, D=128, T=16): the smoke's mixed batch
+# (lengths 1-1500, one pad row, a 128-wide table), one long row alone, and
+# the overhead leg's per-layer shape (8 rows of 1024 tokens, 64-wide table)
+DECODE_SHAPES = {
+    "mixed": "B=8, lengths 1..1500 and a pad row, 128-wide table",
+    "long": "B=1, one 2000-token row, 128-wide table",
+    "uniform": "B=8 x 1024 tokens, 64-wide table",
+}
+SPLIT_CANDIDATES = (64, 128, 256, 512)
+
+
+def decode_inputs(torch, np, dev, dtype, shape: str):
+    """(q, cache, table, lens, real_lens) of one of ``DECODE_SHAPES``, drawn
+    from seeds; ``real_lens``: the lengths of the rows that are not pad
+    rows (numpy), for the bytes the call must read."""
+    H, Hkv, D, T = 32, 8, 128, 16
+    if shape == "uniform":
+        qs, cache, table, lens = overhead_inputs(torch, dev, dtype, seed=6)
+        return (qs[0].contiguous(), cache[0].contiguous(), table, lens,
+                lens.cpu().numpy())
+    if shape == "mixed":
+        B, n_blocks, max_pages = 8, 2048, 128
+        real = np.array([1, 64, 200, 812, 612, 1500, 1000], np.int32)
+    elif shape == "long":
+        B, n_blocks, max_pages = 1, 2048, 128
+        real = np.array([2000], np.int32)
+    else:
+        raise ValueError(f"unknown decode shape {shape!r}")
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((B, H, D), np.float32))
+    cache = torch.randn((2, Hkv, n_blocks, T, D), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    lens = np.ones((B,), np.int32)
+    lens[:len(real)] = real
+    table = np.full((B, max_pages), n_blocks, np.int32)  # rows past real: pad
+    free = rng.permutation(n_blocks).tolist()
+    for b in range(len(real)):
+        n = -(-int(lens[b]) // T)
+        table[b, :n] = [free.pop() for _ in range(n)]
+        table[b, n:] = 0
+    return (q.to(dev, dtype), cache.to(dev, dtype),
+            torch.from_numpy(table).to(dev), torch.from_numpy(lens).to(dev),
+            real)
+
+
+def decode_bytes(q, real_lens, table) -> float:
+    """Bytes one K1/K4 call must move: every valid K and V row once, q read
+    and out written once, the table and the lengths (bf16/f32 by q)."""
+    Hkv, D = 8, q.shape[-1]
+    L = q.shape[0] if q.dim() == 4 else 1
+    es = q.element_size()
+    return (L * float(real_lens.sum()) * Hkv * D * 2 * es + 2 * q.numel() * es
+            + table.numel() * 4 + table.shape[0] * 4)
+
+
+@contextlib.contextmanager
+def split_tokens(ca, n: int):
+    """K1/K4 walk rows in splits of ``n`` tokens inside the block (the
+    wrappers' ``SPLIT_TOKENS``, restored after)."""
+    default = ca.SPLIT_TOKENS
+    ca.SPLIT_TOKENS = n
+    try:
+        yield
+    finally:
+        ca.SPLIT_TOKENS = default
+
+
+def median_device_ms(torch, fn, reps: int, flush) -> float:
+    """Median over ``reps`` single calls timed with CUDA events, L2 flushed
+    before each (the main path finds each layer's tensors cold).  The card
+    first spins for about 100 us, so the host has enqueued the call before
+    the start event is reached: the time is the device's alone, not the
+    wrapper's host work."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def leg_paged_decode(out: dict, reps: int = 30) -> None:
+    """K1 (bf16) at each of ``DECODE_SHAPES``: ``k1_{shape}_ms`` at the
+    wrapper's split size, ``k1_{shape}_bytes``, ``k1_{shape}_tokens`` (the
+    valid tokens of all rows), ``k1_{shape}_gbps``,
+    ``k1_{shape}_splits`` and ``k1_{shape}_split{n}_ms`` for each candidate
+    split size n (tokens); K4 at the overhead leg's shape for each candidate
+    (``k4_split{n}_ms``).  Launches here are counted in ``LAUNCHES`` like
+    any other: reset before reading a path's counts."""
+    import numpy as np
+    import torch
+
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for shape in DECODE_SHAPES:
+        q, cache, table, lens, real = decode_inputs(torch, np, dev,
+                                                    torch.bfloat16, shape)
+        n_bytes = decode_bytes(q, real, table)
+        ms = median_device_ms(torch, lambda: ca.paged_decode_attention_cuda(
+            q, cache, table, lens), reps, flush)
+        out[f"k1_{shape}_ms"] = ms
+        out[f"k1_{shape}_bytes"] = n_bytes
+        out[f"k1_{shape}_tokens"] = float(real.sum())
+        out[f"k1_{shape}_gbps"] = n_bytes / ms / 1e6
+        out[f"k1_{shape}_splits"] = ca.decode_splits(cache.shape[3],
+                                                     table.shape[1])[1]
+        for n in SPLIT_CANDIDATES:
+            with split_tokens(ca, n):
+                out[f"k1_{shape}_split{n}_ms"] = median_device_ms(
+                    torch, lambda: ca.paged_decode_attention_cuda(
+                        q, cache, table, lens), reps, flush)
+        del q, cache
+    qs, cache, table, lens = overhead_inputs(torch, dev, torch.bfloat16)
+    for n in SPLIT_CANDIDATES:
+        with split_tokens(ca, n):
+            out[f"k4_split{n}_ms"] = median_device_ms(
+                torch, lambda: ca.paged_decode_attention_alllayers_cuda(
+                    qs, cache, table, lens), max(5, reps // 3), flush)
 
 
 def _chained_ms(torch, step, x, n: int) -> float:
@@ -140,6 +276,7 @@ def main() -> int:
     out: dict = {"device": torch.cuda.get_device_name(0)}
     with torch.no_grad():
         leg_invocation_overhead(out)
+        leg_paged_decode(out)
     print(json.dumps(out))
     return 0
 

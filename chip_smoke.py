@@ -9,23 +9,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the port's CUDA kernels from ``infinistore_tpu_torch/ops/
    csrc`` (one ``nvcc`` per source, in parallel), print the card's name
-   and power limit, and count each kernel's tensor-core instructions
-   (``cuobjdump -sass``: HGMMA, HMMA); the bf16 flash kernels must hold
-   HGMMA;
+   and power limit, print the paged-decode kernels' registers, shared
+   memory and spills (any local memory fails), and count each kernel's
+   tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA); the bf16
+   flash kernels must hold HGMMA;
 2. kernels: every kernel against its plain PyTorch version on the card at
-   the main path's shapes (H=32, H_kv=8, D=128, T=16), bf16 and f32, with
-   the kernel's, the plain version's and a one-call PyTorch yardstick's
+   the main path's shapes (H=32, H_kv=8, D=128, T=16), bf16 and f32 (K1 at
+   each of ``bench_gpu.DECODE_SHAPES``), with the kernel's, the plain
+   version's and a one-call PyTorch yardstick's
    median device times beside the least time the card could take; K3 and
    K2 also at the serving path's own chunk shapes beside SDPA, with
    TFLOP/s and share of the bound; K4 also ``torch.equal`` to 32 K1
-   launches on the same inputs;
+   launches on the same inputs; then ``bench_gpu.leg_paged_decode``: K1
+   at each decode shape beside its bound, with GB/s, the split count and
+   every candidate split size, and K4 at each candidate;
 3. model path: Llama-3-8B at full width and depth with random bf16 weights
    (seeded ``torch.Generator``) served through ``InferenceEngine`` and
    ``Scheduler`` for 8 requests (shared prefix, chunked prefill, mixed
    greedy and top-k/top-p sampling), with every kernel's launch count over
    that run, and one greedy decode step held against a cold prefill; then
    a cold 1500-token prefill and a B=8 decode step split by kind of
-   kernel under ``torch.profiler``;
+   kernel under ``torch.profiler``, and K1's device time per decode step
+   at each candidate split size;
 4. overhead path: ``bench_gpu.leg_invocation_overhead`` (32 K1 launches in
    a CUDA graph, the same eagerly, one K4 launch, the plain version) and
    what a graph would win back of the decode step profiled in phase 3;
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -78,33 +84,41 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def median_ms(torch, fn, reps: int, flush) -> float:
-    """Median over ``reps`` single calls timed with CUDA events, L2 flushed
-    before each (the main path finds each layer's tensors cold).  The card
-    first spins for about 100 us, so the host has enqueued the call before
-    the start event is reached: the time is the device's alone, not the
-    wrapper's host work (tens of us, which on the serving path overlaps the
-    kernels before it)."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(200_000)
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def bound_ms(n_bytes: float, flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name), from the assembler's report of a build:
+    ``registers``, ``smem`` (static bytes), ``stack``, ``spill_stores`` and
+    ``spill_loads`` (bytes)."""
+    import re
+
+    report: dict = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([^'\s]+)'?", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[fn].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            report[fn]["smem"] = int(m.group(1)) if m else 0
+    return report
 
 
 def phase_build(build) -> None:
@@ -113,10 +127,27 @@ def phase_build(build) -> None:
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}")
     for name in paths:
+        if name == "paged_decode":
+            continue  # per kernel below
         for line in build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma",
                                        "Performance")):
                 print(f"[build] {name}: {line.strip()}")
+    # the paged-decode kernels' registers, shared memory and spills: one
+    # instantiation per type, head size (and, in f32, query-group shape);
+    # any local memory fails
+    report = ptxas_report(build.build_log("paged_decode"))
+    check(report, "no ptxas report for the paged-decode kernels")
+    for fn, r in report.items():
+        m = re.search(r"(paged_decode(?:_bf16)?_kernel)I(.*?)E+vP", fn)
+        short = f"{m[1]}<{m[2]}>" if m else fn
+        print(f"[build] {short}: {r.get('registers')} registers, "
+              f"{r.get('smem')} B static smem, stack {r.get('stack')} B, "
+              f"spill stores {r.get('spill_stores')} B, spill loads "
+              f"{r.get('spill_loads')} B")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+              and r.get("stack") == 0,
+              f"paged_decode kernel {fn} uses local memory: {r}")
     # tensor-core instructions in the compiled kernels: HGMMA (wgmma) and
     # HMMA (mma.sync), per kernel as cuobjdump -sass lists them
     for name in paths:
@@ -130,30 +161,11 @@ def phase_build(build) -> None:
                   f"the bf16 flash kernels hold no wgmma (HGMMA): {counts}")
 
 
-def _paged_inputs(torch, np, dtype, dev):
-    """K1 at the model path's shapes: B=8 with mixed lengths (one of 1), the
-    last row a pad row whose table entries are n_blocks, and a table wider
-    than any row needs."""
-    B, H, Hkv, D, T, n_blocks, max_pages = 8, 32, 8, 128, 16, 2048, 128
-    rng = np.random.default_rng(1)
-    q = torch.from_numpy(rng.standard_normal((B, H, D), np.float32))
-    cache = torch.randn((2, Hkv, n_blocks, T, D), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(2))
-    lens = np.array([1, 64, 200, 812, 612, 1500, 1000, 1], np.int32)
-    table = np.zeros((B, max_pages), np.int32)
-    free = rng.permutation(n_blocks).tolist()
-    for b in range(B - 1):
-        n = -(-int(lens[b]) // T)
-        table[b, :n] = [free.pop() for _ in range(n)]
-    table[B - 1] = n_blocks
-    return (q.to(dev, dtype), cache.to(dev, dtype),
-            torch.from_numpy(table).to(dev), torch.from_numpy(lens).to(dev),
-            lens[: B - 1])
-
-
 def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
     """Each kernel against its plain version; returns per-kernel records."""
     import torch.nn.functional as F
+
+    median_ms = bench_gpu.median_device_ms
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rec = {}
@@ -168,24 +180,28 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
               f"version ({dtype}, max_abs_err={err})")
         return err
 
-    # ---- K1: paged decode ----
-    for dtype in (torch.float32, torch.bfloat16):
-        q, cache, table, lens, real = _paged_inputs(torch, np, dtype, dev)
-        got = ca.paged_decode_attention_cuda(q, cache, table, lens)
-        torch.cuda.synchronize()
-        check(got[-1].abs().max().item() == 0.0, "K1 pad row is not zero")
-        err = compare("K1 paged_decode", got,
-                      ca.paged_decode_attention_xla(q, cache, table, lens),
-                      dtype)
+    # ---- K1: paged decode, at each of bench_gpu.DECODE_SHAPES (the mixed
+    # batch last, whose bf16 inputs stay for the timing) ----
+    for shape in ("long", "uniform", "mixed"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, cache, table, lens, real = bench_gpu.decode_inputs(
+                torch, np, dev, dtype, shape)
+            got = ca.paged_decode_attention_cuda(q, cache, table, lens)
+            torch.cuda.synchronize()
+            n_pad = q.shape[0] - len(real)
+            check(n_pad == 0 or got[-n_pad:].abs().max().item() == 0.0,
+                  f"K1 pad rows are not zero ({shape})")
+            err = compare(f"K1 paged_decode {shape} ({n_pad} pad rows)", got,
+                          ca.paged_decode_attention_xla(q, cache, table,
+                                                        lens), dtype)
     esize = 2
     H, Hkv, D = 32, 8, 128
-    n_bytes = (float(real.sum()) * Hkv * D * 2 * esize
-               + 2 * q.numel() * esize + table.numel() * 4 + lens.numel() * 4)
+    n_bytes = bench_gpu.decode_bytes(q, real, table)
     flops = 4.0 * H * D * float(real.sum())
     b_ms, b_by = bound_ms(n_bytes, flops)
     rec["paged_decode"] = dict(
         name="paged_decode_attention_cuda", source=REPO_SOURCE + "paged_decode.cu",
-        replaces=TPU_SOURCE + "405", max_abs_err=err,
+        replaces=TPU_SOURCE + "406", max_abs_err=err,
         ms=median_ms(torch, lambda: ca.paged_decode_attention_cuda(
             q, cache, table, lens), 30, flush),
         plain_ms=median_ms(torch, lambda: ca.paged_decode_attention_xla(
@@ -313,8 +329,7 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
             del qs, cache, got, per_layer
     L, B = qs.shape[:2]
     tokens = float(lens.sum())
-    n_bytes = (L * tokens * Hkv * D * 2 * esize + 2 * qs.numel() * esize
-               + table.numel() * 4 + lens.numel() * 4)
+    n_bytes = bench_gpu.decode_bytes(qs, lens.cpu().numpy(), table)
     b_ms, b_by = bound_ms(n_bytes, 4.0 * L * H * D * tokens)
     rec["paged_decode_alllayers"] = dict(
         name="paged_decode_attention_alllayers_cuda",
@@ -322,8 +337,9 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
         replaces=TPU_SOURCE + "486", max_abs_err=err,
         ms=median_ms(torch, lambda: ca.paged_decode_attention_alllayers_cuda(
             qs, cache, table, lens), 20, flush),
-        plain_ms=median_ms(torch, lambda: ca.paged_decode_attention_alllayers_xla(
-            qs, cache, table, lens), 5, flush),
+        plain_ms=median_ms(
+            torch, lambda: ca.paged_decode_attention_alllayers_xla(
+                qs, cache, table, lens), 5, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     del qs, cache, got, per_layer
@@ -333,6 +349,31 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
               f"{r['bound_by']})")
     del flush
     return rec
+
+
+def phase_decode(torch, np, bench_gpu) -> dict:
+    """K1 at each of ``bench_gpu.DECODE_SHAPES`` (bf16) beside its bound,
+    with GB/s and the split count; every candidate split size at each
+    shape, and for K4.  Returns the leg's numbers."""
+    out: dict = {}
+    bench_gpu.leg_paged_decode(out)
+    H, D = 32, 128
+    for shape, what in bench_gpu.DECODE_SHAPES.items():
+        n_bytes = out[f"k1_{shape}_bytes"]
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * D * out[f"k1_{shape}_tokens"])
+        ms = out[f"k1_{shape}_ms"]
+        sweep = ", ".join(f"{n}: {out[f'k1_{shape}_split{n}_ms']:.4f}"
+                          for n in bench_gpu.SPLIT_CANDIDATES)
+        print(f"[decode] K1 bf16 {shape} ({what}): {ms:.4f} ms, "
+              f"{out[f'k1_{shape}_gbps']:.1f} GB/s, {100 * b_ms / ms:.1f}% of "
+              f"the bound ({b_ms:.4f} ms by {b_by}, {n_bytes:.0f} B), "
+              f"{out[f'k1_{shape}_splits']} splits per row; ms by split "
+              f"tokens {{{sweep}}}")
+    sweep = ", ".join(f"{n}: {out[f'k4_split{n}_ms']:.4f}"
+                      for n in bench_gpu.SPLIT_CANDIDATES)
+    print(f"[decode] K4 bf16 (L=32, B=8 x 1024): ms by split tokens "
+          f"{{{sweep}}}")
+    return out
 
 
 def llama3_8b(torch, dev):
@@ -481,7 +522,8 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
     1500-token prompt prefilled bare, then another under ``torch.profiler``
     (device time by kind); the same ``steps``-token ``decode_batch`` at B=8
     timed bare and under the profiler, busy share against the bare wall
-    time.  Returns the decode step's ms/step bare and busy and kernels/step
+    time, then K1's device time over 8 more steps at each candidate split
+    size.  Returns the decode step's ms/step bare and busy and kernels/step
     (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -525,13 +567,13 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.decode_batch(states, steps)
         torch.cuda.synchronize()
-    for st in states:
-        engine.release(st)
     groups, top, n_kernels = _device_time_by_kind(torch, prof)
     top = [(ms / steps, n // steps, name) for ms, n, name in top]
     busy = sum(groups.values())
     if not busy:
         print("[profile] the profiler saw no device time: not measured")
+        for st in states:
+            engine.release(st)
         return {}
     per_step = {k: round(v / steps, 4) for k, v in sorted(
         groups.items(), key=lambda kv: -kv[1])}
@@ -542,6 +584,24 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
           f"{json.dumps(per_step)}")
     for ms, n, name in sorted(top, reverse=True)[:8]:
         print(f"[profile]   {ms:8.4f} ms/step  {n:5d}/step  {name}")
+    # K1's device time per step at each candidate split size (the same
+    # states, a few tokens longer each time; the default is restored)
+    import bench_gpu
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    k1_by_split = {}
+    for split in bench_gpu.SPLIT_CANDIDATES:
+        with bench_gpu.split_tokens(ca, split), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            engine.decode_batch(states, 8)
+            torch.cuda.synchronize()
+        k1_by_split[split] = round(sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if "paged_decode" in e.key) / 8 / 1e3, 4)
+    print(f"[profile] decode B={len(states)}: K1 ms/step by split tokens "
+          f"{json.dumps(k1_by_split)} (default {ca.SPLIT_TOKENS})")
+    for st in states:
+        engine.release(st)
     return {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
             "kernels": n_kernels / steps}
 
@@ -794,6 +854,7 @@ def main() -> int:
     phase_build(build)
     with torch.no_grad():
         rec = phase_kernels(torch, np, ca, bench_gpu, dev)
+        phase_decode(torch, np, bench_gpu)
         params, cfg, pc = llama3_8b(torch, dev)
         launches, prof = phase_model(torch, ca, dev, card, params, cfg, pc)
         overhead = phase_overhead(torch, ca, bench_gpu, prof)

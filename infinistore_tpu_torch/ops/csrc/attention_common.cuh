@@ -60,6 +60,21 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* dst,
   }
 }
 
+// Narrow kN floats into one 16-byte vector of T (round to nearest even).
+__device__ __forceinline__ uint4 pack16(const float* src, float) {
+  return make_uint4(__float_as_uint(src[0]), __float_as_uint(src[1]),
+                    __float_as_uint(src[2]), __float_as_uint(src[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* src, __nv_bfloat16) {
+  uint4 u;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    p[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+  }
+  return u;
+}
+
 // Online softmax, part 1: fold a score tile's row maximum into the running
 // max ``m`` and return the factor exp(m_old - m_new) by which the running
 // denominator and numerator of that row are rescaled.

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives of the tensor-core flash kernel, as inline PTX:
-// mbarriers, TMA tile loads, and warpgroup matrix multiplies (wgmma) with
-// their shared-memory descriptors.  Every address here is a shared-memory
+// Hopper (sm_90a) primitives of the tensor-core flash kernel and the paged
+// decode kernel, as inline PTX: mbarriers, TMA tile loads, 1-D bulk copies,
+// and warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors.  Every address here is a shared-memory
 // (``.shared::cta``) address, a 32-bit offset from __cvta_generic_to_shared.
 #pragma once
 
@@ -75,6 +76,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes from global ``src`` into shared memory at
+// ``dst``, counted on ``bar`` (the bulk copy engine, no tensor map).  Both
+// addresses 16-byte aligned, ``bytes`` a multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

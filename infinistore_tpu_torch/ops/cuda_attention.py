@@ -4,8 +4,9 @@ Counterpart of the reference's ``ops/pallas_attention.py``.  Four kernels,
 CUDA C++ in ``csrc/`` (built by ``build.py`` at first use):
 
 * K1 ``paged_decode_attention_cuda`` (``csrc/paged_decode.cu``): one-token
-  GQA decode attention read straight off the paged cache; replaces
-  ``paged_decode_attention_pallas``.
+  GQA decode attention read straight off the paged cache, each row's page
+  walk split across blocks (``decode_splits``) and merged in the same
+  launch; replaces ``paged_decode_attention_pallas``.
 * K3 ``flash_causal_attention_cuda`` (``csrc/flash_attention.cu``): causal
   flash prefill with a ``q_offset``; replaces
   ``flash_causal_attention_pallas``.
@@ -48,11 +49,26 @@ _MAX_REP = 16  # query heads per KV head a decode block holds
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "istpu_paged_decode": ("paged_decode", [_P] * 5 + [_I] * 8 + [_F, _I, _P]),
+    "istpu_paged_decode": ("paged_decode",
+                           [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "istpu_flash_attention": ("flash_attention",
                               [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
 }
 _FNS: dict = {}
+
+# K1/K4's split page walk: a row's pages are walked in splits of
+# SPLIT_TOKENS tokens (rounded up to whole pages), at most MAX_SPLITS per
+# row; the size that gave the decode step the least K1 time on the card
+# (PERF.md, Findings).
+SPLIT_TOKENS = 128
+MAX_SPLITS = 64
+_STATS_FLOATS = 2 * _MAX_REP  # a split's m and l beside its acc [R, D]
+# per device: the merge counters of csrc/paged_decode.cu, [L * B * H_kv]
+# int32, zero between launches (the kernel's last block resets its row).
+# Grown only when a larger L * B * H_kv first appears; a grown-out buffer is
+# kept alive, since a captured CUDA graph may still point at it.
+_COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def reset_launches() -> None:
@@ -77,9 +93,12 @@ def _kernel(fn_name: str):
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
     fn = _kernel(fn_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         msg = _FNS[fn_name + ".err"](err).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
@@ -241,11 +260,38 @@ def paged_decode_attention_alllayers_xla(
 # ---- kernel wrappers ----
 
 
+def decode_splits(T: int, max_pages: int,
+                  split_tokens: Optional[int] = None) -> tuple:
+    """(pages per split, splits per row) of K1/K4's page walk, from the
+    page size and the table width alone: never from ``seq_lens``, so a
+    launch needs no host sync, and never from L, so K4 equals L K1
+    launches.  ``split_tokens`` defaults to ``SPLIT_TOKENS``."""
+    split_tokens = SPLIT_TOKENS if split_tokens is None else split_tokens
+    pages = max(-(-split_tokens // T), -(-max_pages // MAX_SPLITS), 1)
+    return pages, max(1, -(-max_pages // pages))
+
+
+def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "K1/K4's merge counters must be sized by one launch at this "
+                "L * B * H_kv before a CUDA graph is captured")
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
 def _paged_decode(qs: torch.Tensor, cache: torch.Tensor,
                   block_table: torch.Tensor, seq_lens: torch.Tensor,
                   name: str, counter: str) -> torch.Tensor:
     """Check and launch ``csrc/paged_decode.cu`` over qs [L, B, H, D] and
-    cache [L, 2, H_kv, n_blocks, T, D]: K4, or K1 at L = 1."""
+    cache [L, 2, H_kv, n_blocks, T, D]: K4, or K1 at L = 1.  One launch,
+    no host sync; the splits' partials go to a workspace from
+    ``torch.empty`` and are merged in the same launch."""
     _check_attention_dtype(qs)
     L, B, H, D = qs.shape
     if cache.dim() != 6 or cache.shape[0] != L or cache.shape[1] != 2 or \
@@ -268,11 +314,21 @@ def _paged_decode(qs: torch.Tensor, cache: torch.Tensor,
     out = torch.empty_like(qs)
     if B == 0 or L == 0:
         return out
+    max_pages = block_table.shape[1]
+    split_pages, n_splits = decode_splits(T, max_pages)
+    ws = counters = None
+    if n_splits > 1:
+        rec = (H // Hkv) * D + _STATS_FLOATS
+        ws = torch.empty(L * B * Hkv * n_splits * rec, dtype=torch.float32,
+                         device=qs.device)
+        counters = _merge_counters(qs.device, L * B * Hkv)
     _launch(
         "istpu_paged_decode", qs.device,
         qs.data_ptr(), cache.data_ptr(), block_table.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(),
-        L, B, H, Hkv, n_blocks, T, D, block_table.shape[1],
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        L, B, H, Hkv, n_blocks, T, D, max_pages, split_pages, n_splits,
         1.0 / math.sqrt(D), _DTYPE_CODE[qs.dtype],
     )
     LAUNCHES[counter] += 1

@@ -75,6 +75,158 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, D, n_rep, T):
     assert float(got[-1].abs().max()) == 0.0  # the pad row writes zeros
 
 
+def _split_rows(lens, T, max_pages, Hkv, n_rep, D, dtype, dev, seed,
+                pad_rows=0):
+    """K1 inputs with the given row lengths, each row on its own pages
+    (``max_pages`` per row), plus ``pad_rows`` pad rows (seq_len 1, every
+    entry n_blocks)."""
+    rng = np.random.default_rng(seed)
+    B = len(lens) + pad_rows
+    n_blocks = len(lens) * max_pages + 1
+    q = rng.standard_normal((B, Hkv * n_rep, D), np.float32)
+    cache = rng.standard_normal((2, Hkv, n_blocks, T, D), np.float32)
+    table = np.full((B, max_pages), n_blocks, np.int32)
+    perm = rng.permutation(n_blocks)
+    for b in range(len(lens)):
+        table[b] = perm[b * max_pages:(b + 1) * max_pages]
+    seq = np.array(list(lens) + [1] * pad_rows, np.int32)
+    return (torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(cache).to(dev, dtype),
+            torch.from_numpy(table).to(dev), torch.from_numpy(seq).to(dev))
+
+
+def _check_k1(q, cache, table, lens, dtype, pad_rows=0):
+    """One K1 launch against the plain version; a second launch is
+    torch.equal (deterministic merge, counters back at zero); pad rows are
+    zero."""
+    ca.reset_launches()
+    got = ca.paged_decode_attention_cuda(q, cache, table, lens)
+    again = ca.paged_decode_attention_cuda(q, cache, table, lens)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES["paged_decode"] == 2
+    assert torch.equal(got, again)
+    counters = ca._COUNTERS.get(q.device)
+    assert counters is None or int(counters.abs().sum()) == 0
+    _close(got, ca.paged_decode_attention_xla(q, cache, table, lens), dtype)
+    if pad_rows:
+        assert float(got[-pad_rows:].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_rep", [1, 4, 8, 16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [4, 16, 32])
+def test_paged_decode_split_edges(dev, dtype, n_rep, D, T):
+    """K1 with rows one token either side of a split edge, on it, and a row
+    that fills the whole table (three splits)."""
+    split_pages, _ = ca.decode_splits(T, 1)
+    S = split_pages * T
+    max_pages = 3 * split_pages
+    q, cache, table, lens = _split_rows(
+        [1, S - 1, S, S + 1, 2 * S + 3, max_pages * T], T, max_pages, 2,
+        n_rep, D, dtype, dev, seed=T + D + n_rep, pad_rows=1)
+    assert ca.decode_splits(T, max_pages) == (split_pages, 3)
+    _check_k1(q, cache, table, lens, dtype, pad_rows=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_one_long_row(dev, dtype):
+    """B=1 with a 2000-token row in a 128-wide table (Llama-3-8B heads):
+    the whole card works on one row through eight splits."""
+    q, cache, table, lens = _split_rows([2000], 16, 128, 8, 4, 128, dtype,
+                                        dev, seed=5)
+    _check_k1(q, cache, table, lens, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_only_pad_rows(dev, dtype):
+    """A batch of pad rows only (entries n_blocks; seq_len 1, 0 and -3):
+    zeros, no cache read."""
+    q, cache, table, lens = _split_rows([], 16, 64, 8, 4, 128, dtype, dev,
+                                        seed=6, pad_rows=3)
+    lens[1], lens[2] = 0, -3
+    table[1] = 0  # seq_len <= 0 is a pad row whatever the table says
+    got = _check_k1(q, cache, table, lens, dtype, pad_rows=3)
+    assert float(got.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_alllayers_multisplit_equals_per_layer(dev, dtype):
+    """K4 with rows of up to four splits is torch.equal to L K1 launches,
+    and matches its plain version."""
+    L = 3
+    q, cache, table, lens = _split_rows([1, 255, 256, 257, 700, 1024], 16,
+                                        64, 2, 4, 128, dtype, dev, seed=7,
+                                        pad_rows=1)
+    g = torch.Generator(device=dev).manual_seed(7)
+    qs = torch.randn((L,) + tuple(q.shape), generator=g, device=dev).to(dtype)
+    caches = torch.randn((L,) + tuple(cache.shape), generator=g,
+                         device=dev).to(dtype)
+    got = ca.paged_decode_attention_alllayers_cuda(qs, caches, table, lens)
+    per_layer = torch.stack([ca.paged_decode_attention_cuda(
+        qs[l], caches[l], table, lens) for l in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, per_layer)
+    _close(got, ca.paged_decode_attention_alllayers_xla(qs, caches, table,
+                                                        lens), dtype)
+    assert float(got[:, -1].abs().max()) == 0.0
+
+
+def test_paged_decode_is_one_kernel_per_call(dev):
+    """One K1 call is one kernel on the card: no memset, no second merge
+    launch (the profiler sees every kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, cache, table, lens = _split_rows([1, 300, 1500], 16, 128, 8, 4, 128,
+                                        torch.bfloat16, dev, seed=8)
+    ca.paged_decode_attention_cuda(q, cache, table, lens)  # sizes the counters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ca.paged_decode_attention_cuda(q, cache, table, lens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        pytest.fail("the profiler saw no device activity")
+    assert len(kernels) == 1 and "paged_decode" in kernels[0].name, \
+        [e.name for e in kernels]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_graph_replay(dev, dtype):
+    """K1 captured in a CUDA graph, replayed after seq_lens and the table
+    change in place; each replay matches the plain version on the inputs
+    it saw (the split count depends on the table width only)."""
+    T, max_pages = 16, 64
+    q, cache, table, lens = _split_rows([1, 40, 300, 700, 1024], T, max_pages,
+                                        8, 4, 128, dtype, dev, seed=9,
+                                        pad_rows=1)
+    ca.paged_decode_attention_cuda(q, cache, table, lens)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ca.paged_decode_attention_cuda(q, cache, table, lens)
+    rng = np.random.default_rng(10)
+    n_blocks = cache.shape[2]
+    for step in range(4):
+        new_lens = rng.integers(1, max_pages * T + 1, size=lens.shape[0])
+        new_lens[-1] = 1
+        new_table = np.stack([rng.permutation(n_blocks - 1)[:max_pages]
+                              for _ in range(lens.shape[0])]).astype(np.int32)
+        new_table[-1] = n_blocks  # the pad row stays a pad row
+        lens.copy_(torch.from_numpy(new_lens.astype(np.int32)))
+        table.copy_(torch.from_numpy(new_table))
+        q.copy_(torch.randn(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(step), device=dev).to(dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, ca.paged_decode_attention_xla(q, cache, table, lens),
+               dtype)
+        assert float(out[-1].abs().max()) == 0.0
+
+
 # head sizes and query heads per KV head of the flash cases (H_kv = 2)
 _FLASH_HEADS = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 1), (128, 4),
                 (128, 8)]

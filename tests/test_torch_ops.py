@@ -8,6 +8,8 @@ references and the plain versions round their QK and PV products to bf16
 at different points (and the Pallas kernels accumulate in f32).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -169,3 +171,96 @@ def test_repeat_kv_serves_each_kv_head_to_its_query_group():
     for h in range(6):
         assert torch.equal(y[:, :, h], x[:, :, h // 2])
     assert ca.repeat_kv(x, 1) is x
+
+
+def _split_merge_model(q, cache, table, lens, split_tokens):
+    """The scheme of csrc/paged_decode.cu in plain torch, fp32: each row's
+    pages are cut into the splits ``ca.decode_splits`` gives; each split
+    yields (m, l, acc) over its visible tokens in base 2 (an empty split:
+    m = -1e30, l = 0, acc = 0); the splits are merged in split order by
+    log-sum-exp.  A pad row gives zeros."""
+    B, H, D = q.shape
+    Hkv, n_blocks, T = cache.shape[1:4]
+    R, max_pages = H // Hkv, table.shape[1]
+    split_pages, n_splits = ca.decode_splits(T, max_pages, split_tokens)
+    c = math.log2(math.e) / math.sqrt(D)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    for b in range(B):
+        n_pages = -(-int(lens[b]) // T)
+        if lens[b] <= 0 or n_pages > max_pages or any(
+                not 0 <= int(table[b, p]) < n_blocks for p in range(n_pages)):
+            continue
+        for hk in range(Hkv):
+            qg = q[b, hk * R:(hk + 1) * R].float()  # [R, D]
+            parts = []
+            for s in range(n_splits):
+                t0 = s * split_pages * T
+                t1 = min(int(lens[b]), t0 + split_pages * T)
+                if t1 <= t0:
+                    parts.append((torch.full((R,), -1e30), torch.zeros(R),
+                                  torch.zeros(R, D)))
+                    continue
+                toks = torch.arange(t0, t1)
+                pages = table[b, toks // T].long()
+                k = cache[0, hk, pages, toks % T].float()  # [n, D]
+                v = cache[1, hk, pages, toks % T].float()
+                sc = qg @ k.T  # [R, n]
+                m = torch.maximum(sc.max(dim=1).values, torch.tensor(-1e30))
+                p = torch.exp2((sc - m[:, None]) * c)
+                parts.append((m, p.sum(dim=1), p @ v))
+            mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            den = torch.zeros(R)
+            num = torch.zeros(R, D)
+            for m, l, acc in parts:  # split order
+                w = torch.exp2((m - mx) * c)
+                den = den + w * l
+                num = num + w[:, None] * acc
+            out[b, hk * R:(hk + 1) * R] = num / den[:, None]
+    return out
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("split_tokens,want_splits", [
+    (64, 1), (16, 2), (4, 8),
+])
+def test_split_merge_scheme_equals_pallas_and_plain(dt, split_tokens,
+                                                    want_splits):
+    """K1's split-and-merge arithmetic against the Pallas kernel (interpret
+    mode) and the plain version, at split sizes that give one, two and many
+    splits per row.  Rows: seq_len 1, a row that ends on a split edge (its
+    trailing split is empty at 16-token splits), a row over 7 of the 8
+    pages, and a pad row.  Tolerance f32 1e-5, bf16 2e-2 (the module's)."""
+    B, n_rep, Hkv, D, T, n_blocks, max_pages = 4, 2, 2, 64, 4, 32, 8
+    rng = np.random.default_rng(split_tokens)
+    q = rng.standard_normal((B, Hkv * n_rep, D)).astype(np.float32)
+    cache = rng.standard_normal((2, Hkv, n_blocks, T, D)).astype(np.float32)
+    lens = np.array([1, 16, 27, 1], np.int32)
+    table = np.stack([rng.permutation(n_blocks)[:max_pages]
+                      for _ in range(B)]).astype(np.int32)
+    table[B - 1] = n_blocks  # pad row
+    assert ca.decode_splits(T, max_pages, split_tokens)[1] == want_splits
+    jq, tq = _both(q, dt)
+    jc, tc = _both(cache, dt)
+    tt, tl = torch.from_numpy(table), torch.from_numpy(lens)
+    got = _split_merge_model(tq, tc, tt, tl, split_tokens)
+    real = slice(0, B - 1)
+    want = paged_decode_attention_pallas(jq[real], jc, jnp.asarray(table[real]),
+                                         jnp.asarray(lens[real]),
+                                         interpret=True)
+    _close(got, want, dt, real)
+    _close(got, ca.paged_decode_attention_xla(tq, tc, tt, tl).float().numpy(),
+           dt)
+    assert float(got[B - 1].abs().max()) == 0.0
+
+
+def test_decode_splits_depend_on_page_size_and_table_width_only():
+    """The split rule K1 and K4 share: whole pages of about SPLIT_TOKENS
+    tokens, at most MAX_SPLITS per row, enough splits to cover the table."""
+    for T in (1, 4, 16, 32):
+        for max_pages in (1, 8, 64, 128, 4096, 100_000):
+            pages, n = ca.decode_splits(T, max_pages)
+            assert pages * n >= max_pages > pages * (n - 1)
+            assert n <= ca.MAX_SPLITS
+            assert pages >= -(-ca.SPLIT_TOKENS // T)
+    assert ca.decode_splits(16, 128) == (-(-ca.SPLIT_TOKENS // 16),
+                                         -(-128 * 16 // ca.SPLIT_TOKENS))
