@@ -20,14 +20,12 @@ Legs:
   timed with CUDA events.
 * ``leg_paged_decode``: K1's device time at three shapes of Llama-3-8B's
   decode attention (``DECODE_SHAPES``), each with the bytes it must read
-  and the split count, and at each candidate split size; K4 at each
-  candidate too.  Median of single calls timed with CUDA events, L2
+  and the split count.  Median of single calls timed with CUDA events, L2
   flushed before each, host enqueue hidden (``median_device_ms``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import statistics
 import sys
@@ -62,7 +60,6 @@ DECODE_SHAPES = {
     "long": "B=1, one 2000-token row, 128-wide table",
     "uniform": "B=8 x 1024 tokens, 64-wide table",
 }
-SPLIT_CANDIDATES = (64, 128, 256, 512)
 
 
 def decode_inputs(torch, np, dev, dtype, shape: str):
@@ -109,18 +106,6 @@ def decode_bytes(q, real_lens, table) -> float:
             + table.numel() * 4 + table.shape[0] * 4)
 
 
-@contextlib.contextmanager
-def split_tokens(ca, n: int):
-    """K1/K4 walk rows in splits of ``n`` tokens inside the block (the
-    wrappers' ``SPLIT_TOKENS``, restored after)."""
-    default = ca.SPLIT_TOKENS
-    ca.SPLIT_TOKENS = n
-    try:
-        yield
-    finally:
-        ca.SPLIT_TOKENS = default
-
-
 def median_device_ms(torch, fn, reps: int, flush) -> float:
     """Median over ``reps`` single calls timed with CUDA events, L2 flushed
     before each (the main path finds each layer's tensors cold).  The card
@@ -143,14 +128,22 @@ def median_device_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
+def decode_record(torch, ca, q, cache, table, lens, real_lens, reps: int,
+                  flush) -> dict:
+    """K1's median device time on these inputs (``median_device_ms``), the
+    bytes it must move, the valid tokens, GB/s and the splits per row."""
+    ms = median_device_ms(torch, lambda: ca.paged_decode_attention_cuda(
+        q, cache, table, lens), reps, flush)
+    n_bytes = decode_bytes(q, real_lens, table)
+    return dict(ms=ms, bytes=n_bytes, tokens=float(real_lens.sum()),
+                gbps=n_bytes / ms / 1e6,
+                splits=ca.decode_splits(cache.shape[3], table.shape[1])[1])
+
+
 def leg_paged_decode(out: dict, reps: int = 30) -> None:
-    """K1 (bf16) at each of ``DECODE_SHAPES``: ``k1_{shape}_ms`` at the
-    wrapper's split size, ``k1_{shape}_bytes``, ``k1_{shape}_tokens`` (the
-    valid tokens of all rows), ``k1_{shape}_gbps``,
-    ``k1_{shape}_splits`` and ``k1_{shape}_split{n}_ms`` for each candidate
-    split size n (tokens); K4 at the overhead leg's shape for each candidate
-    (``k4_split{n}_ms``).  Launches here are counted in ``LAUNCHES`` like
-    any other: reset before reading a path's counts."""
+    """K1 (bf16) at each of ``DECODE_SHAPES``: ``k1_{shape}_{key}`` for each
+    key of ``decode_record``.  Launches here are counted in ``LAUNCHES``
+    like any other: reset before reading a path's counts."""
     import numpy as np
     import torch
 
@@ -161,27 +154,10 @@ def leg_paged_decode(out: dict, reps: int = 30) -> None:
     for shape in DECODE_SHAPES:
         q, cache, table, lens, real = decode_inputs(torch, np, dev,
                                                     torch.bfloat16, shape)
-        n_bytes = decode_bytes(q, real, table)
-        ms = median_device_ms(torch, lambda: ca.paged_decode_attention_cuda(
-            q, cache, table, lens), reps, flush)
-        out[f"k1_{shape}_ms"] = ms
-        out[f"k1_{shape}_bytes"] = n_bytes
-        out[f"k1_{shape}_tokens"] = float(real.sum())
-        out[f"k1_{shape}_gbps"] = n_bytes / ms / 1e6
-        out[f"k1_{shape}_splits"] = ca.decode_splits(cache.shape[3],
-                                                     table.shape[1])[1]
-        for n in SPLIT_CANDIDATES:
-            with split_tokens(ca, n):
-                out[f"k1_{shape}_split{n}_ms"] = median_device_ms(
-                    torch, lambda: ca.paged_decode_attention_cuda(
-                        q, cache, table, lens), reps, flush)
+        for key, v in decode_record(torch, ca, q, cache, table, lens, real,
+                                    reps, flush).items():
+            out[f"k1_{shape}_{key}"] = v
         del q, cache
-    qs, cache, table, lens = overhead_inputs(torch, dev, torch.bfloat16)
-    for n in SPLIT_CANDIDATES:
-        with split_tokens(ca, n):
-            out[f"k4_split{n}_ms"] = median_device_ms(
-                torch, lambda: ca.paged_decode_attention_alllayers_cuda(
-                    qs, cache, table, lens), max(5, reps // 3), flush)
 
 
 def _chained_ms(torch, step, x, n: int) -> float:
@@ -242,7 +218,7 @@ def leg_invocation_overhead(out: dict, n: int = 30) -> None:
             per_layer(x_graph)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # K1 warmed up on this stream
         per_layer(x_graph)
 
     t_graph = _chained_ms(torch, lambda x: graph.replay(), x_graph, n)

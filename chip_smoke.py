@@ -15,22 +15,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash kernels must hold HGMMA;
 2. kernels: every kernel against its plain PyTorch version on the card at
    the main path's shapes (H=32, H_kv=8, D=128, T=16), bf16 and f32 (K1 at
-   each of ``bench_gpu.DECODE_SHAPES``), with the kernel's, the plain
-   version's and a one-call PyTorch yardstick's
-   median device times beside the least time the card could take; K3 and
-   K2 also at the serving path's own chunk shapes beside SDPA, with
-   TFLOP/s and share of the bound; K4 also ``torch.equal`` to 32 K1
-   launches on the same inputs; then ``bench_gpu.leg_paged_decode``: K1
-   at each decode shape beside its bound, with GB/s, the split count and
-   every candidate split size, and K4 at each candidate;
+   each of ``bench_gpu.DECODE_SHAPES``, timed at each beside its bound,
+   with GB/s and the split count), with the kernel's, the plain version's
+   and a one-call PyTorch yardstick's median device times beside the least
+   time the card could take; K3 and K2 also at the serving path's own
+   chunk shapes beside SDPA, with TFLOP/s and share of the bound; K4 also
+   ``torch.equal`` to 32 K1 launches on the same inputs;
 3. model path: Llama-3-8B at full width and depth with random bf16 weights
    (seeded ``torch.Generator``) served through ``InferenceEngine`` and
    ``Scheduler`` for 8 requests (shared prefix, chunked prefill, mixed
    greedy and top-k/top-p sampling), with every kernel's launch count over
    that run, and one greedy decode step held against a cold prefill; then
    a cold 1500-token prefill and a B=8 decode step split by kind of
-   kernel under ``torch.profiler``, and K1's device time per decode step
-   at each candidate split size;
+   kernel under ``torch.profiler``;
 4. overhead path: ``bench_gpu.leg_invocation_overhead`` (32 K1 launches in
    a CUDA graph, the same eagerly, one K4 launch, the plain version) and
    what a graph would win back of the decode step profiled in phase 3;
@@ -94,8 +91,6 @@ def ptxas_report(log: str) -> dict:
     """Per kernel (mangled name), from the assembler's report of a build:
     ``registers``, ``smem`` (static bytes), ``stack``, ``spill_stores`` and
     ``spill_loads`` (bytes)."""
-    import re
-
     report: dict = {}
     fn = None
     for line in log.splitlines():
@@ -180,8 +175,11 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
               f"version ({dtype}, max_abs_err={err})")
         return err
 
-    # ---- K1: paged decode, at each of bench_gpu.DECODE_SHAPES (the mixed
-    # batch last, whose bf16 inputs stay for the timing) ----
+    # ---- K1: paged decode, at each of bench_gpu.DECODE_SHAPES, timed once
+    # in bf16 beside its bound (the mixed batch last, whose bf16 inputs stay
+    # for the plain version's time) ----
+    esize = 2
+    H, Hkv, D = 32, 8, 128
     for shape in ("long", "uniform", "mixed"):
         for dtype in (torch.float32, torch.bfloat16):
             q, cache, table, lens, real = bench_gpu.decode_inputs(
@@ -194,16 +192,16 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
             err = compare(f"K1 paged_decode {shape} ({n_pad} pad rows)", got,
                           ca.paged_decode_attention_xla(q, cache, table,
                                                         lens), dtype)
-    esize = 2
-    H, Hkv, D = 32, 8, 128
-    n_bytes = bench_gpu.decode_bytes(q, real, table)
-    flops = 4.0 * H * D * float(real.sum())
-    b_ms, b_by = bound_ms(n_bytes, flops)
+        d = bench_gpu.decode_record(torch, ca, q, cache, table, lens, real,
+                                    30, flush)
+        b_ms, b_by = bound_ms(d["bytes"], 4.0 * H * D * d["tokens"])
+        print(f"[decode] K1 bf16 {shape} ({bench_gpu.DECODE_SHAPES[shape]}): "
+              f"{d['ms']:.4f} ms, {d['gbps']:.1f} GB/s, "
+              f"{100 * b_ms / d['ms']:.1f}% of the bound ({b_ms:.4f} ms by "
+              f"{b_by}, {d['bytes']:.0f} B), {d['splits']} splits per row")
     rec["paged_decode"] = dict(
         name="paged_decode_attention_cuda", source=REPO_SOURCE + "paged_decode.cu",
-        replaces=TPU_SOURCE + "406", max_abs_err=err,
-        ms=median_ms(torch, lambda: ca.paged_decode_attention_cuda(
-            q, cache, table, lens), 30, flush),
+        replaces=TPU_SOURCE + "406", max_abs_err=err, ms=d["ms"],
         plain_ms=median_ms(torch, lambda: ca.paged_decode_attention_xla(
             q, cache, table, lens), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -349,31 +347,6 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
               f"{r['bound_by']})")
     del flush
     return rec
-
-
-def phase_decode(torch, np, bench_gpu) -> dict:
-    """K1 at each of ``bench_gpu.DECODE_SHAPES`` (bf16) beside its bound,
-    with GB/s and the split count; every candidate split size at each
-    shape, and for K4.  Returns the leg's numbers."""
-    out: dict = {}
-    bench_gpu.leg_paged_decode(out)
-    H, D = 32, 128
-    for shape, what in bench_gpu.DECODE_SHAPES.items():
-        n_bytes = out[f"k1_{shape}_bytes"]
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * H * D * out[f"k1_{shape}_tokens"])
-        ms = out[f"k1_{shape}_ms"]
-        sweep = ", ".join(f"{n}: {out[f'k1_{shape}_split{n}_ms']:.4f}"
-                          for n in bench_gpu.SPLIT_CANDIDATES)
-        print(f"[decode] K1 bf16 {shape} ({what}): {ms:.4f} ms, "
-              f"{out[f'k1_{shape}_gbps']:.1f} GB/s, {100 * b_ms / ms:.1f}% of "
-              f"the bound ({b_ms:.4f} ms by {b_by}, {n_bytes:.0f} B), "
-              f"{out[f'k1_{shape}_splits']} splits per row; ms by split "
-              f"tokens {{{sweep}}}")
-    sweep = ", ".join(f"{n}: {out[f'k4_split{n}_ms']:.4f}"
-                      for n in bench_gpu.SPLIT_CANDIDATES)
-    print(f"[decode] K4 bf16 (L=32, B=8 x 1024): ms by split tokens "
-          f"{{{sweep}}}")
-    return out
 
 
 def llama3_8b(torch, dev):
@@ -522,8 +495,7 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
     1500-token prompt prefilled bare, then another under ``torch.profiler``
     (device time by kind); the same ``steps``-token ``decode_batch`` at B=8
     timed bare and under the profiler, busy share against the bare wall
-    time, then K1's device time over 8 more steps at each candidate split
-    size.  Returns the decode step's ms/step bare and busy and kernels/step
+    time.  Returns the decode step's ms/step bare and busy and kernels/step
     (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -567,13 +539,13 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.decode_batch(states, steps)
         torch.cuda.synchronize()
+    for st in states:
+        engine.release(st)
     groups, top, n_kernels = _device_time_by_kind(torch, prof)
     top = [(ms / steps, n // steps, name) for ms, n, name in top]
     busy = sum(groups.values())
     if not busy:
         print("[profile] the profiler saw no device time: not measured")
-        for st in states:
-            engine.release(st)
         return {}
     per_step = {k: round(v / steps, 4) for k, v in sorted(
         groups.items(), key=lambda kv: -kv[1])}
@@ -584,24 +556,6 @@ def phase_profile(torch, engine, prompts, steps: int = 16) -> dict:
           f"{json.dumps(per_step)}")
     for ms, n, name in sorted(top, reverse=True)[:8]:
         print(f"[profile]   {ms:8.4f} ms/step  {n:5d}/step  {name}")
-    # K1's device time per step at each candidate split size (the same
-    # states, a few tokens longer each time; the default is restored)
-    import bench_gpu
-    from infinistore_tpu_torch.ops import cuda_attention as ca
-
-    k1_by_split = {}
-    for split in bench_gpu.SPLIT_CANDIDATES:
-        with bench_gpu.split_tokens(ca, split), profile(
-                activities=[ProfilerActivity.CUDA]) as prof:
-            engine.decode_batch(states, 8)
-            torch.cuda.synchronize()
-        k1_by_split[split] = round(sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if "paged_decode" in e.key) / 8 / 1e3, 4)
-    print(f"[profile] decode B={len(states)}: K1 ms/step by split tokens "
-          f"{json.dumps(k1_by_split)} (default {ca.SPLIT_TOKENS})")
-    for st in states:
-        engine.release(st)
     return {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
             "kernels": n_kernels / steps}
 
@@ -854,7 +808,6 @@ def main() -> int:
     phase_build(build)
     with torch.no_grad():
         rec = phase_kernels(torch, np, ca, bench_gpu, dev)
-        phase_decode(torch, np, bench_gpu)
         params, cfg, pc = llama3_8b(torch, dev)
         launches, prof = phase_model(torch, ca, dev, card, params, cfg, pc)
         overhead = phase_overhead(torch, ca, bench_gpu, prof)

@@ -63,8 +63,10 @@
 //   all blocks of a row agree and a pad row takes no ticket.
 //
 // The counter buffer ([L * B * H_kv] int32, zero between launches) is
-// owned by the wrapper per device and shared by every launch: launches on
-// one device must run on one stream at a time (PyTorch's current stream).
+// owned by the wrapper per device and stream, and shared by every launch on
+// that stream: launches on one stream run one after another, so two never
+// take tickets from the same counter at once.  A caller that passes one
+// buffer to launches on two streams at once breaks the merge.
 //
 // Not carried over from the TPU kernel: its sublane padding of the query
 // group to 8/16 rows (:426-437) exists for the TPU's (8, 128) tiling; here
@@ -494,7 +496,8 @@ cudaError_t launch_rep(int R, const void* q, const void* cache,
 // ``split_pages`` pages (n_splits * split_pages >= max_pages).  ``ws``: fp32
 // workspace of L * B * H_kv * n_splits * ((H / H_kv) * D + 32) floats (unused,
 // may be null, when n_splits == 1); ``counters``: L * B * H_kv int32, zero
-// before the launch and zero after it.  The caller checks shapes, types,
+// before the launch and zero after it, used by no launch on another stream
+// meanwhile.  The caller checks shapes, types,
 // contiguity and 16-byte alignment; this returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for a head size, type or split it was
 // not built for).

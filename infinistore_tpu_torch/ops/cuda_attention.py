@@ -63,11 +63,15 @@ _FNS: dict = {}
 SPLIT_TOKENS = 128
 MAX_SPLITS = 64
 _STATS_FLOATS = 2 * _MAX_REP  # a split's m and l beside its acc [R, D]
-# per device: the merge counters of csrc/paged_decode.cu, [L * B * H_kv]
-# int32, zero between launches (the kernel's last block resets its row).
-# Grown only when a larger L * B * H_kv first appears; a grown-out buffer is
-# kept alive, since a captured CUDA graph may still point at it.
-_COUNTERS: dict = {}
+# per (device, stream handle): (workspace, counters) of csrc/paged_decode.cu:
+# the splits' fp32 partials, and the merge counters, [L * B * H_kv] int32,
+# zero between launches (the kernel's last block resets its row).  Launches
+# on one stream run one at a time, so one pair serves them all, and
+# launches on two streams never share one.  Each grows only when a larger
+# call first appears on its stream; a grown-out tensor is kept alive, since
+# a captured CUDA graph may still point at it.  A graph holds its capture
+# stream's pair: replay it where nothing else runs on that pair meanwhile.
+_SCRATCH: dict = {}
 _RETIRED: list = []
 
 
@@ -91,9 +95,10 @@ def _kernel(fn_name: str):
     return fn
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
+def _launch(fn_name: str, device: torch.device, stream: int, *args) -> None:
+    """Launch ``fn_name`` on ``stream`` (the handle of the current stream of
+    ``device``); raise if the launch fails."""
     fn = _kernel(fn_name)
-    stream = torch.cuda.current_stream(device).cuda_stream
     if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, stream)
     else:
@@ -260,29 +265,36 @@ def paged_decode_attention_alllayers_xla(
 # ---- kernel wrappers ----
 
 
-def decode_splits(T: int, max_pages: int,
-                  split_tokens: Optional[int] = None) -> tuple:
+def decode_splits(T: int, max_pages: int) -> tuple:
     """(pages per split, splits per row) of K1/K4's page walk, from the
     page size and the table width alone: never from ``seq_lens``, so a
     launch needs no host sync, and never from L, so K4 equals L K1
-    launches.  ``split_tokens`` defaults to ``SPLIT_TOKENS``."""
-    split_tokens = SPLIT_TOKENS if split_tokens is None else split_tokens
-    pages = max(-(-split_tokens // T), -(-max_pages // MAX_SPLITS), 1)
+    launches."""
+    pages = max(-(-SPLIT_TOKENS // T), -(-max_pages // MAX_SPLITS), 1)
     return pages, max(1, -(-max_pages // pages))
 
 
-def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "K1/K4's merge counters must be sized by one launch at this "
-                "L * B * H_kv before a CUDA graph is captured")
-        if buf is not None:
-            _RETIRED.append(buf)
-        buf = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
-                                              device=device)
-    return buf
+def _scratch(device: torch.device, stream: int, n_ws: int,
+             n_counters: int) -> tuple:
+    """The (workspace, counters) of launches on ``stream``, at least
+    ``n_ws`` floats and ``n_counters`` counters."""
+    pair = _SCRATCH.get((device, stream))
+    if pair is not None and pair[0].numel() >= n_ws and \
+            pair[1].numel() >= n_counters:
+        return pair
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "K1/K4's workspace and merge counters must be sized by one launch "
+            "at this shape on the capture stream before a CUDA graph is "
+            "captured")
+    if pair is not None:
+        _RETIRED.extend(pair)
+        n_ws = max(n_ws, pair[0].numel())
+        n_counters = max(n_counters, pair[1].numel())
+    pair = _SCRATCH[(device, stream)] = (
+        torch.empty(n_ws, dtype=torch.float32, device=device),
+        torch.zeros(n_counters, dtype=torch.int32, device=device))
+    return pair
 
 
 def _paged_decode(qs: torch.Tensor, cache: torch.Tensor,
@@ -290,8 +302,8 @@ def _paged_decode(qs: torch.Tensor, cache: torch.Tensor,
                   name: str, counter: str) -> torch.Tensor:
     """Check and launch ``csrc/paged_decode.cu`` over qs [L, B, H, D] and
     cache [L, 2, H_kv, n_blocks, T, D]: K4, or K1 at L = 1.  One launch,
-    no host sync; the splits' partials go to a workspace from
-    ``torch.empty`` and are merged in the same launch."""
+    no host sync; the splits' partials go to the stream's workspace
+    (``_scratch``) and are merged in the same launch."""
     _check_attention_dtype(qs)
     L, B, H, D = qs.shape
     if cache.dim() != 6 or cache.shape[0] != L or cache.shape[1] != 2 or \
@@ -316,14 +328,14 @@ def _paged_decode(qs: torch.Tensor, cache: torch.Tensor,
         return out
     max_pages = block_table.shape[1]
     split_pages, n_splits = decode_splits(T, max_pages)
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
     ws = counters = None
     if n_splits > 1:
         rec = (H // Hkv) * D + _STATS_FLOATS
-        ws = torch.empty(L * B * Hkv * n_splits * rec, dtype=torch.float32,
-                         device=qs.device)
-        counters = _merge_counters(qs.device, L * B * Hkv)
+        ws, counters = _scratch(qs.device, stream,
+                                L * B * Hkv * n_splits * rec, L * B * Hkv)
     _launch(
-        "istpu_paged_decode", qs.device,
+        "istpu_paged_decode", qs.device, stream,
         qs.data_ptr(), cache.data_ptr(), block_table.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(),
@@ -396,6 +408,7 @@ def _flash(q, k, v, q_offset: int, prefix_pad: int, prefix_len: int,
         return out
     _launch(
         "istpu_flash_attention", q.device,
+        torch.cuda.current_stream(q.device).cuda_stream,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, Hkv, D, q_offset, prefix_pad, prefix_len,
         1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],

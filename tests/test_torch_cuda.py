@@ -95,6 +95,12 @@ def _split_rows(lens, T, max_pages, Hkv, n_rep, D, dtype, dev, seed,
             torch.from_numpy(table).to(dev), torch.from_numpy(seq).to(dev))
 
 
+def _assert_counters_zero():
+    """Every stream's merge counters are back at zero."""
+    for key, (_ws, counters) in ca._SCRATCH.items():
+        assert int(counters.abs().sum()) == 0, key
+
+
 def _check_k1(q, cache, table, lens, dtype, pad_rows=0):
     """One K1 launch against the plain version; a second launch is
     torch.equal (deterministic merge, counters back at zero); pad rows are
@@ -105,8 +111,7 @@ def _check_k1(q, cache, table, lens, dtype, pad_rows=0):
     torch.cuda.synchronize()
     assert ca.LAUNCHES["paged_decode"] == 2
     assert torch.equal(got, again)
-    counters = ca._COUNTERS.get(q.device)
-    assert counters is None or int(counters.abs().sum()) == 0
+    _assert_counters_zero()
     _close(got, ca.paged_decode_attention_xla(q, cache, table, lens), dtype)
     if pad_rows:
         assert float(got[-pad_rows:].abs().max()) == 0.0
@@ -203,10 +208,14 @@ def test_paged_decode_graph_replay(dev, dtype):
     q, cache, table, lens = _split_rows([1, 40, 300, 700, 1024], T, max_pages,
                                         8, 4, 128, dtype, dev, seed=9,
                                         pad_rows=1)
-    ca.paged_decode_attention_cuda(q, cache, table, lens)  # warm-up
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: sizes this stream's buffers
+        ca.paged_decode_attention_cuda(q, cache, table, lens)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = ca.paged_decode_attention_cuda(q, cache, table, lens)
     rng = np.random.default_rng(10)
     n_blocks = cache.shape[2]
@@ -225,6 +234,39 @@ def test_paged_decode_graph_replay(dev, dtype):
         _close(out, ca.paged_decode_attention_xla(q, cache, table, lens),
                dtype)
         assert float(out[-1].abs().max()) == 0.0
+
+
+def test_paged_decode_two_streams(dev):
+    """K1 on two streams at once, many launches each, one multi-split row
+    per stream on one KV head (12-16 blocks a launch, so the two streams'
+    launches run side by side on the card): each stream takes tickets from
+    its own merge counters, so every output matches the plain version on
+    its own inputs and both streams' counters end at zero."""
+    dtype, n_rounds = torch.bfloat16, 40
+    inputs = [_split_rows([n], 16, 128, 1, 4, 128, dtype, dev, seed=11 + i)
+              for i, n in enumerate((2000, 1500))]
+    g = torch.Generator(device=dev).manual_seed(13)
+    qs = [[torch.randn(tuple(x[0].shape), generator=g, device=dev).to(dtype)
+           for _ in range(n_rounds)] for x in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:  # both queues fill before either runs
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    outs = [[], []]
+    for r in range(n_rounds):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(ca.paged_decode_attention_cuda(
+                    qs[i][r], *inputs[i][1:]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for q, out in zip(qs[i], outs[i]):
+            _close(out, ca.paged_decode_attention_xla(q, *inputs[i][1:]),
+                   dtype)
+    _assert_counters_zero()
+    for x, s in zip(inputs, streams):
+        assert (x[0].device, s.cuda_stream) in ca._SCRATCH
 
 
 # head sizes and query heads per KV head of the flash cases (H_kv = 2)

@@ -173,7 +173,7 @@ def test_repeat_kv_serves_each_kv_head_to_its_query_group():
     assert ca.repeat_kv(x, 1) is x
 
 
-def _split_merge_model(q, cache, table, lens, split_tokens):
+def _split_merge_model(q, cache, table, lens):
     """The scheme of csrc/paged_decode.cu in plain torch, fp32: each row's
     pages are cut into the splits ``ca.decode_splits`` gives; each split
     yields (m, l, acc) over its visible tokens in base 2 (an empty split:
@@ -182,7 +182,7 @@ def _split_merge_model(q, cache, table, lens, split_tokens):
     B, H, D = q.shape
     Hkv, n_blocks, T = cache.shape[1:4]
     R, max_pages = H // Hkv, table.shape[1]
-    split_pages, n_splits = ca.decode_splits(T, max_pages, split_tokens)
+    split_pages, n_splits = ca.decode_splits(T, max_pages)
     c = math.log2(math.e) / math.sqrt(D)
     out = torch.zeros((B, H, D), dtype=torch.float32)
     for b in range(B):
@@ -220,29 +220,32 @@ def _split_merge_model(q, cache, table, lens, split_tokens):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("split_tokens,want_splits", [
-    (64, 1), (16, 2), (4, 8),
+@pytest.mark.parametrize("T,max_pages,lens,want_splits", [
+    (4, 8, (1, 16, 27), 1),
+    (16, 16, (1, 128, 200), 2),
+    (16, 64, (1, 128, 900), 8),
 ])
-def test_split_merge_scheme_equals_pallas_and_plain(dt, split_tokens,
+def test_split_merge_scheme_equals_pallas_and_plain(dt, T, max_pages, lens,
                                                     want_splits):
     """K1's split-and-merge arithmetic against the Pallas kernel (interpret
-    mode) and the plain version, at split sizes that give one, two and many
-    splits per row.  Rows: seq_len 1, a row that ends on a split edge (its
-    trailing split is empty at 16-token splits), a row over 7 of the 8
-    pages, and a pad row.  Tolerance f32 1e-5, bf16 2e-2 (the module's)."""
-    B, n_rep, Hkv, D, T, n_blocks, max_pages = 4, 2, 2, 64, 4, 32, 8
-    rng = np.random.default_rng(split_tokens)
+    mode) and the plain version, at page sizes and table widths that give
+    one, two and many splits per row.  Rows: seq_len 1, a row that ends on
+    a split edge (its trailing splits are empty), a longer row, and a pad
+    row.  Tolerance f32 1e-5, bf16 2e-2 (the module's)."""
+    B, n_rep, Hkv, D = len(lens) + 1, 2, 2, 64
+    n_blocks = 2 * max_pages
+    rng = np.random.default_rng(T * max_pages)
     q = rng.standard_normal((B, Hkv * n_rep, D)).astype(np.float32)
     cache = rng.standard_normal((2, Hkv, n_blocks, T, D)).astype(np.float32)
-    lens = np.array([1, 16, 27, 1], np.int32)
+    lens = np.array(list(lens) + [1], np.int32)
     table = np.stack([rng.permutation(n_blocks)[:max_pages]
                       for _ in range(B)]).astype(np.int32)
     table[B - 1] = n_blocks  # pad row
-    assert ca.decode_splits(T, max_pages, split_tokens)[1] == want_splits
+    assert ca.decode_splits(T, max_pages)[1] == want_splits
     jq, tq = _both(q, dt)
     jc, tc = _both(cache, dt)
     tt, tl = torch.from_numpy(table), torch.from_numpy(lens)
-    got = _split_merge_model(tq, tc, tt, tl, split_tokens)
+    got = _split_merge_model(tq, tc, tt, tl)
     real = slice(0, B - 1)
     want = paged_decode_attention_pallas(jq[real], jc, jnp.asarray(table[real]),
                                          jnp.asarray(lens[real]),
