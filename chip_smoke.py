@@ -40,13 +40,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. overhead path: ``bench_gpu.leg_invocation_overhead`` (32 K1 launches in
    a CUDA graph, the same eagerly, one K4 launch, the plain version) beside
    the eager and graph decode steps of phase 3;
-6. store path: the port's own store server in a subprocess; engine A
-   prefills a fresh 1500-token prompt into it, engine B (same weights, its
-   own connection and cache) adopts the 93 stored chunks and computes only
-   the tail; adopted pages bitwise equal to A's, first-token logits close,
-   every push band straight into the page-locked shm pool; then the same
-   over TCP with int8 pages; push/load rates and TTFT printed;
-7. the ``kernels`` line: one JSON object with every kernel's numbers, each
+6. store path: the port's own store server in a subprocess (kept for the
+   fleet path); engine A prefills a fresh 1500-token prompt into it,
+   engine B (same weights, its own connection and cache) adopts the 93
+   stored chunks and computes only the tail; adopted pages bitwise equal
+   to A's, first-token logits close, every push band straight into the
+   page-locked shm pool; then the same over TCP with int8 pages; push/load
+   rates and TTFT printed;
+7. fleet path: the store phase's server backs a prefill worker and a decode
+   worker (``InferenceEngine`` + ``ServingServer`` each, Llama-3-8B,
+   lossless pages) behind the port's ``FrontDoor``, in this process; 8
+   fresh prompts of 512-1500 tokens streamed through the router one at a
+   time, then 8 more at once: all 200 with no router 5xx, each decode
+   record adopting (prompt tokens - 1) // 16 chunks from the store, the
+   sequential requests' adopted pages bitwise equal to the prefill
+   worker's and their first greedy token equal to its local answer, K1/K2/
+   K3 launched (the counts the sum of the two workers'); TTFT, TPOT,
+   handoff and store_load_s printed; then the four-process tiny fleet
+   (``examples.fleet_processes --smoke --device cuda``) must exit 0;
+8. the ``kernels`` line: one JSON object with every kernel's numbers, each
    kernel's launches counted over the path that runs it.
 
 The last line of standard output is
@@ -61,6 +73,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -397,8 +410,8 @@ def logits_agree(torch, got, want, what: str, max_err: bool = True) -> None:
 
 
 def phase_model(torch, ca, dev, card: str, params, cfg, pc):
-    """The PR-1 serving path; returns its launch counts and the decode-step
-    profile."""
+    """The serving path; returns its launch counts, the decode-step
+    profile, the engine and each request's TTFT (ms) by prompt length."""
     from infinistore_tpu_torch.engine import InferenceEngine, Scheduler
     from infinistore_tpu_torch.models import prefill_forward
 
@@ -481,7 +494,10 @@ def phase_model(torch, ca, dev, card: str, params, cfg, pc):
                  f"[model] decode-step logits vs cold prefill ({len(p) + 1} "
                  f"tokens)")
     prof = phase_profile(torch, engine, [p for p, _n, _kw in reqs], card)
-    return launches, prof, engine
+    # each request's TTFT by its prompt length (all 8 submitted at once)
+    ttft_by_len = {len(p): (finished[i].t_first - finished[i].t_submit) * 1e3
+                   for (p, _n, _kw), i in zip(reqs, ids)}
+    return launches, prof, engine, ttft_by_len
 
 
 def _device_time_by_kind(torch, prof):
@@ -660,17 +676,20 @@ def _http(port: int, method: str, path: str, body=None):
     return resp.status, data
 
 
-def _sse_tokens(port: int, body: dict) -> list:
-    """The token ids of a streamed completion, up to [DONE]."""
+def _sse_stream(port: int, body: dict, headers=None):
+    """A streamed completion up to [DONE]: its token ids and, per event
+    that carried tokens, (seconds since the request was sent, tokens so
+    far)."""
     import http.client
 
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
     conn.request("POST", "/v1/completions",
                  json.dumps({**body, "stream": True}),
-                 {"Content-Type": "application/json"})
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     check(resp.status == 200, f"streamed request answered {resp.status}")
-    toks, buf, done = [], b"", False
+    toks, stamps, buf, done = [], [], b"", False
     while not done:
         chunk = resp.read1(65536)
         if not chunk:
@@ -678,14 +697,19 @@ def _sse_tokens(port: int, body: dict) -> list:
         buf += chunk
         while b"\n\n" in buf:
             event, buf = buf.split(b"\n\n", 1)
+            if not event.startswith(b"data: "):
+                continue  # an SSE comment line
             payload = event[len(b"data: "):]
             if payload == b"[DONE]":
                 done = True
                 break
-            toks.extend(json.loads(payload)["choices"][0]["token_ids"])
+            new = json.loads(payload)["choices"][0]["token_ids"]
+            if new:
+                toks.extend(new)
+                stamps.append((time.perf_counter() - t0, len(toks)))
     conn.close()
     check(done, "the stream ended without [DONE]")
-    return toks
+    return toks, stamps
 
 
 def phase_serve(torch, ca, engine, cfg, card: str) -> None:
@@ -718,8 +742,8 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
         t0 = time.perf_counter()
         p = prompt(12)
         greedy = complete({"prompt": p, "max_tokens": 16, "temperature": 0})
-        streamed = _sse_tokens(srv.port, {"prompt": p, "max_tokens": 16,
-                                          "temperature": 0})
+        streamed, _stamps = _sse_stream(srv.port, {
+            "prompt": p, "max_tokens": 16, "temperature": 0})
         print(f"[serve] greedy {len(greedy['token_ids'])} tokens; streamed "
               f"twin equal: {streamed == greedy['token_ids']}")
         check(streamed == greedy["token_ids"],
@@ -946,28 +970,296 @@ def _store_case(torch, dev, params, cfg, pc, port: int, transport: str,
             c.close()
 
 
-def phase_store(torch, ca, dev, params, cfg, pc) -> dict:
-    """The store hop, shm with full-precision pages, then TCP with int8
-    pages; returns the launch counts over both."""
-    proc, port = _start_store(prealloc_gib=4,
-                              min_alloc_kib=max(16, pc.page_bytes // 1024))
-    try:
-        ca.reset_launches()
-        torch.cuda.synchronize()
-        _store_case(torch, dev, params, cfg, pc, port, "shm", None, seed=11)
-        _store_case(torch, dev, params, cfg, pc, port, "tcp", "int8", seed=12)
-        torch.cuda.synchronize()
-        launches = dict(ca.LAUNCHES)
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+def phase_store(torch, ca, dev, params, cfg, pc, port: int) -> dict:
+    """The store hop through the store server on ``port``, shm with
+    full-precision pages, then TCP with int8 pages; returns the launch
+    counts over both."""
+    ca.reset_launches()
+    torch.cuda.synchronize()
+    _store_case(torch, dev, params, cfg, pc, port, "shm", None, seed=11)
+    _store_case(torch, dev, params, cfg, pc, port, "tcp", "int8", seed=12)
+    torch.cuda.synchronize()
+    launches = dict(ca.LAUNCHES)
     print(f"[store] launches on the store path: {json.dumps(launches)}")
     check(all(launches[k] > 0 for k in MODEL_PATH_KERNELS),
           f"a kernel was not launched on the store path: {launches}")
+    return launches
+
+
+FLEET_LENGTHS = (512, 612, 700, 812, 900, 1000, 1200, 1500)
+
+
+def _fleet_requests(port: int, prompts, tag: str, trace_ids, concurrent):
+    """Stream each prompt through the router (greedy, 32 new tokens), one
+    at a time or all at once; returns, per prompt, (tokens, TTFT ms, TPOT
+    ms) as the client sees them, TPOT over the events after the first.
+    Each request carries its own trace id, which the router propagates to
+    the workers' ledgers."""
+    import threading
+
+    out = [None] * len(prompts)
+
+    def one(i):
+        toks, stamps = _sse_stream(
+            port, {"prompt": prompts[i], "max_tokens": 32, "temperature": 0},
+            headers={"X-Istpu-Trace": trace_ids[i]})
+        check(len(toks) == 32, f"{tag} request {i} returned {len(toks)} "
+              f"tokens, wanted 32")
+        (t_first, n_first), (t_last, n_last) = stamps[0], stamps[-1]
+        tpot = ((t_last - t_first) * 1e3 / (n_last - n_first)
+                if n_last > n_first else 0.0)
+        out[i] = (toks, t_first * 1e3, tpot)
+
+    if not concurrent:
+        for i in range(len(prompts)):
+            one(i)
+        return out
+    errors = []
+
+    def run(i):
+        try:
+            one(i)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors and all(not t.is_alive() for t in threads),
+          f"{tag} concurrent requests failed: {errors}")
+    return out
+
+
+def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
+                monolith_ttft: dict, port: int) -> dict:
+    """The disaggregated fleet at full width, in one process: the port's
+    store server on ``port`` backs a prefill worker and a decode worker
+    (the port's ``InferenceEngine`` + ``ServingServer`` each, on the
+    phase's Llama-3-8B, lossless pages) behind the port's ``FrontDoor``,
+    composed as
+    ``local_fleet`` composes them.  8 fresh prompts through the router one
+    at a time, then 8 more at once, all streamed: every answer 200 with no
+    router 5xx, each decode record adopting the chunks the adoption rule
+    allows, each sequential request's adopted pages bitwise equal to the
+    prefill worker's, its first token equal to the prefill worker's own
+    local answer, and K1/K2/K3 launched on the path (the global counts the
+    sum of the two workers' engine threads').  Then the four-process tiny
+    fleet (``examples.fleet_processes --smoke``) on the card.  Returns the
+    launch counts over the routed traffic."""
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.frontdoor import compose_routers
+    from infinistore_tpu_torch.kv import chunk_keys, read_pages
+    from infinistore_tpu_torch.serve import ServingServer
+    from infinistore_tpu_torch.utils.metrics import parse_prometheus_text
+
+    model_id = "fleet-llama-3-8b-random"
+    T = pc.block_tokens
+    t_phase = time.perf_counter()
+    conns, engines, servers, routers = [], [], {}, []
+    # the OpenAI contract through the fleet, not the overload loop: the
+    # first requests pay graph captures, which must not trip shedding
+    os.environ["ISTPU_ADMISSION"] = "0"
+    try:
+        for role in ("prefill", "decode"):
+            c = lib.InfinityConnection(ClientConfig(
+                host_addr="127.0.0.1", service_port=port,
+                connection_type=TYPE_SHM, op_timeout_s=60.0,
+                log_level="warning"))
+            c.connect()
+            conns.append(c)
+            # decode_chunk 8: tokens show every 8 steps, so the client
+            # reads a TPOT within 32 new tokens
+            eng = InferenceEngine(params, cfg, pc, conn=c, kv_quant=None,
+                                  prefill_chunk=512, decode_chunk=8,
+                                  model_id=model_id, device=dev)
+            engines.append(eng)
+            srv = ServingServer(eng, port=0, max_batch=8, model_id=model_id,
+                                role=role)
+            srv.start()
+            servers[role] = srv
+        t_workers = time.perf_counter() - t_phase
+        pre, dec = servers["prefill"], servers["decode"]
+        routers = compose_routers([f"http://127.0.0.1:{pre.port}"],
+                                  [f"http://127.0.0.1:{dec.port}"],
+                                  poll_s=0.5)
+        fd = routers[0]
+        rng = torch.Generator().manual_seed(91)
+
+        def prompt(n):
+            return torch.randint(0, cfg.vocab_size, (n,), generator=rng
+                                 ).tolist()
+
+        # warm-up through the router on a prompt of its own (kernels'
+        # first launches, cuBLAS, the decode worker's B=1 graph, both
+        # workers page-locking the pool): not counted, not timed
+        t_setup = time.perf_counter() - t_phase
+        _fleet_requests(fd.port, [prompt(100)], "[fleet] warm-up",
+                        ["fleet-warm"], concurrent=False)
+        t_warm = time.perf_counter() - t_phase - t_setup
+        seq = [prompt(n) for n in FLEET_LENGTHS]
+        par = [prompt(n + 5 if n < 1500 else n - 5)  # fresh, other lengths
+               for n in FLEET_LENGTHS]
+        seq_ids = [f"fleet-seq-{i}" for i in range(len(seq))]
+        par_ids = [f"fleet-par-{i}" for i in range(len(par))]
+        status, data = _http(fd.port, "GET", "/metrics")
+        handoff0 = parse_prometheus_text(data.decode())
+
+        ca.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adopted_equal = []
+        seq_out = []
+        for i in range(len(seq)):
+            seq_out += _fleet_requests(fd.port, seq[i:i + 1], "[fleet]",
+                                       seq_ids[i:i + 1], concurrent=False)
+            # the handoff is byte-exact: the decode worker's adopted pages
+            # against the prefill worker's under the same chunk keys
+            n = (len(seq[i]) - 1) // T
+            keys = chunk_keys(seq[i], model_id, chunk_tokens=T)[:n]
+            pages = []
+            for eng in engines:
+                ids = [eng.pages._key_to_block.get(k) for k in keys]
+                check(None not in ids, f"[fleet] request {i}: a chunk is not "
+                      f"resident on a worker")
+                pages.append(read_pages(eng.cache, torch.tensor(ids,
+                                                                device=dev)))
+            adopted_equal.append(torch.equal(*pages))
+        t_seq = time.perf_counter() - t0
+        status, data = _http(fd.port, "GET", "/metrics")
+        handoff1 = parse_prometheus_text(data.decode())
+        t0 = time.perf_counter()
+        par_out = _fleet_requests(fd.port, par, "[fleet]", par_ids,
+                                  concurrent=True)
+        t_par = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(ca.LAUNCHES)
+        by_worker = {role: dict(ca.BY_THREAD.get(
+            srv._engine_thread.ident, dict.fromkeys(launches, 0)))
+            for role, srv in servers.items()}
+        print(f"[fleet] launches on the fleet path: {json.dumps(launches)}; "
+              f"by worker {json.dumps(by_worker)}")
+        check(all(launches[k] > 0 for k in MODEL_PATH_KERNELS),
+              f"a kernel was not launched on the fleet path: {launches}")
+        check(all(sum(w[k] for w in by_worker.values()) == launches[k]
+                  for k in launches),
+              "[fleet] the launch counts are not the sum of the workers'")
+        print(f"[fleet] adopted pages torch.equal to the prefill worker's, "
+              f"per sequential request: {adopted_equal}")
+        check(all(adopted_equal), "[fleet] adopted pages differ from the "
+              "prefill worker's")
+
+        # the decode worker's ledger: every request adopted the chunks
+        # the adoption rule allows, (prompt tokens - 1) // T
+        status, data = _http(dec.port, "GET", "/debug/requests?limit=64")
+        recs = {r["trace_id"]: r for r in json.loads(data)["records"]}
+        rows = []
+        for p, tid, (toks, ttft, tpot) in zip(seq + par, seq_ids + par_ids,
+                                              seq_out + par_out):
+            rec = recs.get(tid)
+            check(rec is not None, f"[fleet] no decode record for {tid}")
+            st = rec["store"]
+            check(st["store_chunks"] == (len(p) - 1) // T,
+                  f"[fleet] {tid} ({len(p)} tokens) adopted "
+                  f"{st['store_chunks']} chunks from the store, wanted "
+                  f"{(len(p) - 1) // T}")
+            rows.append((tid, len(p), ttft, tpot, st["store_chunks"],
+                         st["load_s"]))
+        status, data = _http(fd.port, "GET", "/metrics")
+        prom = parse_prometheus_text(data.decode())
+        fivexx = prom.get(("istpu_fd_requests_total", (("class", "5xx"),)))
+        check(fivexx == 0.0, f"[fleet] the router served 5xx: {fivexx}")
+
+        def handoffs(a, b):
+            """(count, mean ms) of the prefill legs between two reads."""
+            n = (b[("istpu_fd_handoff_seconds_count", ())]
+                 - a[("istpu_fd_handoff_seconds_count", ())])
+            return n, 1e3 * (b[("istpu_fd_handoff_seconds_sum", ())]
+                             - a[("istpu_fd_handoff_seconds_sum", ())]) / n
+        status, data = _http(fd.port, "GET", "/debug/fleet")
+        handoff = json.loads(data)["handoff"]
+
+        # the oracle: the prefill worker's own local answer to each
+        # sequential prompt (it reuses the pages it pushed); not counted
+        t_oracle = time.perf_counter()
+        oracle_first = oracle_all = 0
+        for p, (toks, _ttft, _tpot) in zip(seq, seq_out):
+            status, data = _http(pre.port, "POST", "/v1/completions",
+                                 {"prompt": p, "max_tokens": 32,
+                                  "temperature": 0})
+            check(status == 200, f"[fleet] oracle answered {status}")
+            want = json.loads(data)["choices"][0]["token_ids"]
+            oracle_first += want[0] == toks[0]
+            oracle_all += want == toks
+        print(f"[fleet] routed greedy tokens vs the prefill worker's local "
+              f"answer: first token equal {oracle_first}/{len(seq)}, whole "
+              f"32-token sequence equal {oracle_all}/{len(seq)}")
+        check(oracle_first == len(seq),
+              "[fleet] a routed first token differs from the local oracle")
+        print(f"[fleet] phase wall: set-up {t_setup:.1f} s (workers "
+              f"{t_workers:.1f} s), warm-up "
+              f"{t_warm:.1f} s, routed traffic {t_seq + t_par:.1f} s, "
+              f"oracle {time.perf_counter() - t_oracle:.1f} s")
+
+        for tid, n, ttft, tpot, chunks, load_s in rows:
+            mono = monolith_ttft.get(n)
+            print(f"[fleet] {tid}: {n} prompt tokens, TTFT {ttft:.1f} ms, "
+                  f"TPOT {tpot:.2f} ms through the router; decode worker "
+                  f"store_chunks={chunks}, store_load_s={load_s}"
+                  + (f"; serving-phase monolith TTFT {mono:.1f} ms"
+                     if mono is not None else ""))
+        for name, out, wall, (n_h, mean_h) in (
+                ("one at a time", seq_out, t_seq, handoffs(handoff0, handoff1)),
+                ("all 8 at once", par_out, t_par, handoffs(handoff1, prom))):
+            print(f"[fleet] {name}: 8 requests in {wall:.3f} s; TTFT median "
+                  f"{statistics.median(o[1] for o in out):.1f} ms, TPOT "
+                  f"median {statistics.median(o[2] for o in out):.2f} ms "
+                  f"through the router; istpu_fd_handoff_seconds (the "
+                  f"prefill leg) mean {mean_h:.1f} ms over {n_h:.0f}")
+        n_h, mean_h = handoffs(handoff0, prom)
+        print(f"[fleet] istpu_fd_handoff_seconds: {n_h:.0f} handoffs, mean "
+              f"{mean_h:.1f} ms; /debug/fleet p50/p99 "
+              f"{handoff['p50_ms']}/{handoff['p99_ms']} ms; decode "
+              f"store_load_s median "
+              f"{statistics.median(r[5] for r in rows):.4f} s; 5xx "
+              f"{fivexx:.0f}; in one process, so the two workers' host "
+              f"threads share one interpreter ({card})")
+    finally:
+        for r in routers:
+            r.close()
+        for srv in servers.values():
+            srv.close()
+        for e in engines:
+            e.transfer.close()
+        for c in conns:
+            c.close()
+        os.environ.pop("ISTPU_ADMISSION", None)
+
+    # the deployment shape: four OS processes (store, prefill worker,
+    # decode worker, router) on the tiny model, the workers on the card
+    t0 = time.perf_counter()
+    # a session of its own, so a timeout ends the workers it started too
+    run = subprocess.Popen(
+        [sys.executable, "-m", "infinistore_tpu_torch.examples.fleet_processes",
+         "--smoke", "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = run.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(run.pid, signal.SIGKILL)
+        out, _ = run.communicate()
+    for line in out.splitlines():
+        if line.startswith("[fleet]") and "starting" not in line:
+            print(f"[fleet] four processes: {line}")
+    print(f"[fleet] four-process fleet (store, prefill, decode, router) "
+          f"exited {run.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(run.returncode == 0, f"[fleet] the four-process fleet failed: "
+          f"{out[-3000:]}")
     return launches
 
 
@@ -999,12 +1291,33 @@ def main() -> int:
     with torch.no_grad():
         rec = phase_kernels(torch, np, ca, bench_gpu, dev)
         params, cfg, pc = llama3_8b(torch, dev)
-        launches, prof, engine = phase_model(torch, ca, dev, card, params,
-                                             cfg, pc)
+        launches, prof, engine, ttft_by_len = phase_model(
+            torch, ca, dev, card, params, cfg, pc)
         phase_serve(torch, ca, engine, cfg, card)
         del engine
         overhead = phase_overhead(torch, ca, bench_gpu, prof)
-        phase_store(torch, ca, dev, params, cfg, pc)
+        # one store server (4 GiB pool in /dev/shm) for the store and
+        # fleet phases; its allocation unit is one full-precision page, so
+        # a band's pages sit in one contiguous run of the pool
+        t_store = time.perf_counter()
+        store, port = _start_store(
+            prealloc_gib=4, min_alloc_kib=max(16, pc.page_bytes // 1024))
+        print(f"[store] the port's store server up in "
+              f"{time.perf_counter() - t_store:.1f} s")
+        try:
+            phase_store(torch, ca, dev, params, cfg, pc, port)
+            # the earlier phases' engines are gone: the card holds the
+            # weights and the fleet's two caches
+            torch.cuda.empty_cache()
+            phase_fleet(torch, ca, dev, params, cfg, pc, card, ttft_by_len,
+                        port)
+        finally:
+            store.terminate()
+            try:
+                store.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                store.kill()
+                store.wait()
     # each kernel's launches over the path that runs it: K1-K3 the serving
     # path, K4 the overhead path
     launches["paged_decode_alllayers"] = overhead["paged_decode_alllayers"]

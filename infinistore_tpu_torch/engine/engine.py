@@ -916,15 +916,22 @@ class InferenceEngine:
         failed capture raises."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = dict(ca.CAPTURED)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            self._step(g)
+        # ``capture_begin``/``capture_end`` on the engine's stream rather
+        # than ``torch.cuda.graph``, whose entry synchronizes the whole
+        # device and empties the allocator's cache: another engine's thread
+        # in this process may hold a capture open, and those calls break
+        # it.  The tally counts this thread's kernel calls only.
+        with ca.capture_tally() as tally, torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                self._step(g)
+            finally:
+                graph.capture_end()
         secs = time.perf_counter() - t0
-        g.captured = {k: n - before[k] for k, n in ca.CAPTURED.items()
-                      if n != before[k]}
+        g.captured = tally
         g.graph = graph
         g.cache_ptr = self.cache.data_ptr()
         self.graph_captures += 1

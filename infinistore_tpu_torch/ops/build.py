@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -39,6 +40,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build at a time in a process: engines on several threads (an
+# in-process fleet) may launch their first kernel at once
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc_path() -> str:
@@ -65,7 +69,14 @@ def build_all() -> Dict[str, Path]:
     """Compile every library not yet built, one ``nvcc`` per source, all
     started together.  Returns name -> library path.  The assembler's
     register/shared-memory report of each build is kept beside its library
-    as ``<library>.log``.  Raises with the compiler's output on failure."""
+    as ``<library>.log``.  Raises with the compiler's output on failure.
+    Threads of one process build one at a time, so a library is compiled
+    once however many of them ask for it."""
+    with _BUILD_LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in SOURCES}
     procs = {}

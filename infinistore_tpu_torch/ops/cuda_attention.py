@@ -24,6 +24,11 @@ fails, and counts the launch in ``LAUNCHES``; it never falls back.  A call
 made while its stream is being captured into a CUDA graph launches nothing:
 it counts in ``CAPTURED`` instead, and whoever replays the graph adds the
 graph's captured launches to ``LAUNCHES`` at each replay (``count_replay``).
+A capturer learns what its own capture recorded from ``capture_tally``,
+which counts the capturing thread's calls only, so two engines capturing
+at once in one process never count each other's.  Every count is also
+kept per launching thread (``BY_THREAD``): in an in-process fleet each
+worker's engine thread launches and replays its own kernels.
 
 The plain versions are direct ports of the XLA functions the Pallas kernels
 were tested against: ``paged_decode_attention_xla`` for K1 and the
@@ -34,8 +39,10 @@ in the input type, softmax in fp32); the kernels accumulate in fp32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -48,9 +55,15 @@ LAUNCHES = {"paged_decode": 0, "flash_causal": 0, "flash_prefix": 0,
 # calls recorded into a CUDA graph under capture, since the last reset: a
 # capture records a launch for each replay to make, and launches nothing
 CAPTURED = dict.fromkeys(LAUNCHES, 0)
+# LAUNCHES per launching thread (thread ident -> counts), since the last reset
+BY_THREAD: dict = {}
+# guards the three tallies: engines on several threads launch at once
+_COUNT_LOCK = threading.Lock()
+# the capture tally of the calling thread, while ``capture_tally`` is open
+_TALLY = threading.local()
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)  # the head sizes the kernels are built for
 _MAX_REP = 16  # query heads per KV head a decode block holds
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -82,23 +95,53 @@ _RETIRED: list = []
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        CAPTURED[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            CAPTURED[k] = 0
+        BY_THREAD.clear()
+
+
+def _launched(counter: str, n: int) -> None:
+    """Count ``n`` launches of ``counter``; the caller holds the lock."""
+    LAUNCHES[counter] += n
+    mine = BY_THREAD.setdefault(threading.get_ident(),
+                                dict.fromkeys(LAUNCHES, 0))
+    mine[counter] += n
 
 
 def _count(counter: str) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[counter] += 1
-    else:
-        LAUNCHES[counter] += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _COUNT_LOCK:
+        if capturing:
+            CAPTURED[counter] += 1
+            tally = getattr(_TALLY, "counts", None)
+            if tally is not None:
+                tally[counter] = tally.get(counter, 0) + 1
+        else:
+            _launched(counter, 1)
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Yields a dict that counts, by kernel, the calls THIS thread makes
+    under stream capture while the block runs: what a graph captured there
+    will launch at each replay, whatever other threads capture meanwhile."""
+    tally: dict = {}
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = outer
 
 
 def count_replay(captured: dict) -> None:
     """One replay of a CUDA graph that captured ``captured[k]`` launches of
     kernel ``k``: each of them launches again."""
-    for k, n in captured.items():
-        LAUNCHES[k] += n
+    with _COUNT_LOCK:
+        for k, n in captured.items():
+            _launched(k, n)
 
 
 def _kernel(fn_name: str):
@@ -146,9 +189,9 @@ def _check_attention_dtype(q: torch.Tensor) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA attention kernels take bf16 or f32, got "
                         f"{q.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
+    if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the CUDA attention kernels are built for head_dim "
-                         f"in {_HEAD_DIMS}, got {q.shape[-1]}")
+                         f"in {HEAD_DIMS}, got {q.shape[-1]}")
 
 
 # ---- plain versions ----

@@ -5,8 +5,9 @@ Counterpart of the reference's ``serve.py``: every route, payload, metric
 family and ``X-Istpu-*`` header keeps the reference's name, so the front
 door, ``istpu-top``, ``istpu-doctor`` and the load generator drive it
 unchanged.  Only ``main`` differs: it serves the ``tiny`` model on a
-``--device`` (``cuda`` by default); a checkpoint directory, ``--tp/--pp``,
-speculation, a store ring and ``--role router`` raise, naming the
+``--device`` (``cuda`` by default), and ``--role router`` hands the command
+line to the port's ``frontdoor.main``; a checkpoint directory,
+``--tp/--pp``, speculation and a store ring raise, naming the
 ``ROADMAP.md`` item each waits for.
 
 The reference's serving loop is vLLM, which fronts its engine with an
@@ -2442,6 +2443,22 @@ def _make_handler(server: ServingServer):
 
 def main(argv: Optional[List[str]] = None) -> None:
     import argparse
+    import sys as _sys
+
+    argv = list(_sys.argv[1:] if argv is None else argv)
+    # `--role router` is the front door, a different program entirely
+    # (no engine, no checkpoint): delegate before this parser rejects
+    # the router's own flags
+    for i, a in enumerate(argv):
+        if (a == "--role" and i + 1 < len(argv)
+                and argv[i + 1] == "router"):
+            from . import frontdoor
+
+            return frontdoor.main(argv[:i] + argv[i + 2:])
+        if a == "--role=router":
+            from . import frontdoor
+
+            return frontdoor.main(argv[:i] + argv[i + 1:])
 
     ap = argparse.ArgumentParser("infinistore_tpu_torch.serve")
     ap.add_argument("--host", default="127.0.0.1")
@@ -2452,8 +2469,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="fleet role: monolith serves everything; "
                          "prefill/decode label this worker for a "
                          "disaggregated fleet (every endpoint stays live "
-                         "on every role).  'router' (the front door) is "
-                         "not ported yet")
+                         "on every role); router runs the front door "
+                         "(frontdoor.py) over --prefill-workers / "
+                         "--decode-workers instead of an engine")
     ap.add_argument("--model", default="tiny",
                     help="'tiny' (random-init demo); a local HF checkpoint "
                          "dir is not ported yet")
@@ -2535,9 +2553,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
     Logger.set_log_level(args.log_level)
 
-    if args.role == "router":
-        raise SystemExit("--role router (the front door) is not ported yet "
-                         "(ROADMAP.md queue 1 item 6)")
     if args.model != "tiny":
         raise SystemExit("a checkpoint directory needs models/hf.py, not "
                          "ported yet (ROADMAP.md queue 1 item 8); serve "
