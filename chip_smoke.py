@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensor-core instructions (``cuobjdump -sass``: HGMMA, HMMA); the bf16
    flash kernels must hold HGMMA;
 2. kernels: every kernel against its plain PyTorch version on the card at
-   the main path's shapes (H=32, H_kv=8, D=128, T=16), bf16 and f32 (K1 at
+   the main path's shapes (H=32, H_kv=8, D=128, T=16; K1-K3 also at the
+   four-process fleet's TINY shapes, D=32), bf16 and f32 (K1 at
    each of ``bench_gpu.DECODE_SHAPES``, timed at each beside its bound,
    with GB/s and the split count), with the kernel's, the plain version's
    and a one-call PyTorch yardstick's median device times beside the least
@@ -55,9 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    record adopting (prompt tokens - 1) // 16 chunks from the store, the
    sequential requests' adopted pages bitwise equal to the prefill
    worker's and their first greedy token equal to its local answer, K1/K2/
-   K3 launched (the counts the sum of the two workers'); TTFT, TPOT,
-   handoff and store_load_s printed; then the four-process tiny fleet
-   (``examples.fleet_processes --smoke --device cuda``) must exit 0;
+   K3 launched by the two workers' engine threads and by no other thread;
+   TTFT, TPOT, handoff and store_load_s printed; then the four-process
+   tiny fleet (``examples.fleet_processes --smoke --device cuda``) must
+   exit 0, its workers having launched K3 and K1 (head size 32);
 8. the ``kernels`` line: one JSON object with every kernel's numbers, each
    kernel's launches counted over the path that runs it.
 
@@ -331,6 +333,30 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
                      lambda: sdpa(q, k, v, attn_mask=mask), None,
                      Sq, plen + Sq, plen * Sq + Sq * (Sq + 1) / 2)
     del q, k, v, mask
+    # ---- the TINY model's head size (32; H=4, H_kv=2) as the four-process
+    # fleet of phase 7 runs it: K1 over 4-token pages, K3 on a cold
+    # 16-token prompt, K2 on a 4-token tail over a 12-token prefix (bf16
+    # takes the FMA path at D = 32)
+    g = torch.Generator().manual_seed(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g).to(dev, dtype)
+        q, cache = rnd(8, 4, 32), rnd(2, 2, 128, 4, 32)
+        table = torch.randperm(128, generator=g)[:8 * 16].view(8, 16).to(
+            dev, torch.int32)
+        lens = torch.randint(1, 65, (8,), generator=g).to(dev, torch.int32)
+        compare("K1 paged_decode D=32 T=4", ca.paged_decode_attention_cuda(
+            q, cache, table, lens), ca.paged_decode_attention_xla(
+            q, cache, table, lens), dtype)
+        q, k, v = rnd(1, 16, 4, 32), rnd(1, 16, 2, 32), rnd(1, 16, 2, 32)
+        compare("K3 flash_causal D=32 Sq=16", ca.flash_causal_attention_cuda(
+            q, k, v), ca.causal_attention_xla(q, k, v), dtype)
+        q, k, v = rnd(1, 4, 4, 32), rnd(1, 20, 2, 32), rnd(1, 20, 2, 32)
+        compare("K2 flash_prefix D=32 pad=16 len=12 Sq=4",
+                ca.flash_prefix_attention_cuda(q, k, v, 16, 12),
+                ca.causal_attention_xla(q, k, v, prefix_pad=16,
+                                        prefix_len=12), dtype)
+    del q, k, v, cache, table, lens
     # ---- K4: K1 over all 32 layers in one launch, at the overhead leg's
     # shapes (B=8, a 1024-token context on distinct pages for each row)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1045,10 +1071,11 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
     router 5xx, each decode record adopting the chunks the adoption rule
     allows, each sequential request's adopted pages bitwise equal to the
     prefill worker's, its first token equal to the prefill worker's own
-    local answer, and K1/K2/K3 launched on the path (the global counts the
-    sum of the two workers' engine threads').  Then the four-process tiny
-    fleet (``examples.fleet_processes --smoke``) on the card.  Returns the
-    launch counts over the routed traffic."""
+    local answer, and K1/K2/K3 launched on the path by the two workers'
+    engine threads and no other thread.  Then the four-process tiny fleet
+    (``examples.fleet_processes --smoke``) on the card, whose workers must
+    launch K3 and K1 too.  Returns the launch counts over the routed
+    traffic."""
     from infinistore_tpu_torch import lib
     from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
     from infinistore_tpu_torch.engine import InferenceEngine
@@ -1138,16 +1165,19 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
         t_par = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = dict(ca.LAUNCHES)
-        by_worker = {role: dict(ca.BY_THREAD.get(
-            srv._engine_thread.ident, dict.fromkeys(launches, 0)))
-            for role, srv in servers.items()}
+        by_thread = {t: dict(c) for t, c in ca.BY_THREAD.items()}
+        workers = {srv._engine_thread.ident: role
+                   for role, srv in servers.items()}
+        by_worker = {role: by_thread.get(t, dict.fromkeys(launches, 0))
+                     for t, role in workers.items()}
         print(f"[fleet] launches on the fleet path: {json.dumps(launches)}; "
               f"by worker {json.dumps(by_worker)}")
         check(all(launches[k] > 0 for k in MODEL_PATH_KERNELS),
               f"a kernel was not launched on the fleet path: {launches}")
-        check(all(sum(w[k] for w in by_worker.values()) == launches[k]
-                  for k in launches),
-              "[fleet] the launch counts are not the sum of the workers'")
+        others = {t: c for t, c in by_thread.items()
+                  if t not in workers and any(c.values())}
+        check(not others, f"[fleet] threads other than the two workers' "
+              f"engine threads launched kernels: {others}")
         print(f"[fleet] adopted pages torch.equal to the prefill worker's, "
               f"per sequential request: {adopted_equal}")
         check(all(adopted_equal), "[fleet] adopted pages differ from the "

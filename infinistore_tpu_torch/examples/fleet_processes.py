@@ -19,6 +19,8 @@ Usage::
         --device cpu
         # CI: exit 0 iff every request completed, the router served no
         # 5xx and the decode worker adopted prompt pages from the store
+        # (on the card also: both workers launched K3, the decode worker
+        # K1 too)
 
 Everything runs on localhost with the tiny random-init model and TCP
 store connections; ``--device`` is the workers' torch device (``cuda`` by
@@ -85,9 +87,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--smoke", action="store_true",
                     help="CI mode: exit nonzero unless every request "
-                         "completes, the router serves zero 5xx and the "
+                         "completes, the router serves zero 5xx, the "
                          "decode worker adopts prompt pages from the "
-                         "store")
+                         "store and, on the card, the workers launch "
+                         "K3 (both) and K1 (decode)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--device", default="cuda",
                     help="the workers' torch device: 'cuda' (the "
@@ -190,13 +193,28 @@ def main() -> int:
             m = re.search(r'istpu_engine_prefix_tokens_total'
                           r'\{source="store"\} (\S+)', r.read().decode())
         adopted = float(m.group(1)) if m else 0.0
+        # each worker's hand-written kernel launches: a cold prompt on the
+        # prefill worker runs K3, and so does the decode worker's tail over
+        # the adopted prefix (with a q_offset); its decode steps run K1.
+        # The 16-token prompts fit one prefill chunk, so K2 has no call.
+        launches = {}
+        for role, port in (("prefill", pf_port), ("decode", dec_port)):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/debug/engine?limit=1",
+                    timeout=10) as r:
+                launches[role] = json.load(r)["kernel_launches"]
         print(f"[fleet] done: {completed}/{args.requests} completed, "
               f"{failed} failed, router 5xx={fivexx:.0f}, workers="
               f"{[w.get('role') for w in fleet.get('workers', [])]}, "
               f"decode worker adopted {adopted:.0f} prompt tokens from "
-              f"the store", flush=True)
+              f"the store; kernel launches {json.dumps(launches)}",
+              flush=True)
         ok = (completed == args.requests and failed == 0 and fivexx == 0.0
               and adopted > 0)
+        if args.device != "cpu":
+            ok = ok and (launches["prefill"]["flash_causal"] > 0
+                         and launches["decode"]["flash_causal"] > 0
+                         and launches["decode"]["paged_decode"] > 0)
         if args.smoke and not ok:
             print("[fleet] SMOKE FAILED", flush=True)
             return 1

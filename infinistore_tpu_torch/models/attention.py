@@ -1,12 +1,10 @@
 """Attention ops: RoPE, causal prefill attention and paged decode attention.
 
 Counterpart of the reference's ``models/attention.py``, routed as it
-routes: a sliding window or a logit soft-cap (Mistral, Gemma-2), and a head
-size the kernels are not built for (``HEAD_DIMS``: the 32 of the ``TINY``
-test model), go to the plain PyTorch version on every device, as the
-reference sends those configurations to its XLA path on every backend (its
-kernels carry neither mask, and take a head size only in multiples of
-128); everything else goes to a hand-written kernel
+routes: a sliding window or a logit soft-cap (Mistral, Gemma-2) goes to the
+plain PyTorch version on every device, as the reference sends those
+configurations to its XLA path on every backend (its kernels carry neither
+mask); everything else goes to a hand-written kernel
 (``ops/cuda_attention.py``) for a CUDA tensor and to the plain version for
 a CPU tensor.  The route follows the configuration alone: no switch, no
 exception caught, no fallback when a kernel fails.
@@ -20,7 +18,6 @@ from typing import Optional
 import torch
 
 from ..ops.cuda_attention import (
-    HEAD_DIMS,
     causal_attention_xla,
     flash_causal_attention_cuda,
     flash_prefix_attention_cuda,
@@ -90,13 +87,6 @@ def apply_rope(
     return out.to(x.dtype)
 
 
-def _plain_route(q: torch.Tensor, window, softcap) -> bool:
-    """Whether this configuration takes the plain version: a CPU tensor, a
-    window, a soft-cap, or a head size the kernels are not built for."""
-    return (q.device.type == "cpu" or window is not None
-            or softcap is not None or q.shape[-1] not in HEAD_DIMS)
-
-
 def causal_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -115,12 +105,12 @@ def causal_attention(
     the first ``prefix_pad`` K/V rows are a prefix buffer of which only the
     first ``prefix_len`` are valid.
 
-    With a ``window`` or ``softcap``, a head size not in ``HEAD_DIMS``,
-    and on the CPU: the plain ``causal_attention_xla``.  Otherwise on CUDA:
-    K2 (``flash_prefix_attention_cuda``) in padded-prefix mode, K3
+    With a ``window`` or ``softcap``, and on the CPU: the plain
+    ``causal_attention_xla``.  Otherwise on CUDA: K2
+    (``flash_prefix_attention_cuda``) in padded-prefix mode, K3
     (``flash_causal_attention_cuda``) otherwise.
     """
-    if _plain_route(q, window, softcap):
+    if q.device.type == "cpu" or window is not None or softcap is not None:
         return causal_attention_xla(
             q, k, v, q_offset=q_offset, prefix_pad=prefix_pad,
             prefix_len=prefix_len, window=window, softcap=softcap,
@@ -142,13 +132,12 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Paged decode attention; K1 (``paged_decode_attention_cuda``) on CUDA,
     the plain gather (``paged_decode_attention_xla``) on the CPU and, on
-    every device, for a ``window``, a ``softcap`` or a head size not in
-    ``HEAD_DIMS``.
+    every device, for a ``window`` or ``softcap``.
 
     q: [B, H, D] (RoPE applied); layer_cache: [2, H_kv, n_blocks, T, D];
     block_table: [B, max_pages] int32; seq_lens: [B] int32 (incl. current).
     """
-    if _plain_route(q, window, softcap):
+    if q.device.type == "cpu" or window is not None or softcap is not None:
         return paged_decode_attention_xla(
             q, layer_cache, block_table, seq_lens, window=window,
             softcap=softcap,

@@ -47,12 +47,15 @@
 // a tile of slack alone, and the query tiles with the most work are
 // scheduled first.
 //
-// f32 (no model path runs it on the card): the first port's FMA kernel,
-// kept for the f32 tests and tolerances (atol = rtol = 1e-4), which TF32
-// tensor cores (~3 decimal digits) would not meet.  One block per (64-row
-// query tile, query head, batch row), 256 threads each owning a 4 x 4 patch
-// of the 64 x 64 score tile; scores and P.V are fp32 FMAs from padded shared
-// memory, folded through the shared online softmax.
+// The FMA kernel: f32 at every head size (the f32 tests and tolerances,
+// atol = rtol = 1e-4, which TF32 tensor cores, ~3 decimal digits, would
+// not meet), and bf16 at D = 32 (the TINY test model), whose 64-byte rows
+// are half of the 128-byte swizzled row the wgmma path is laid out for.
+// One block per (64-row query tile, query head, batch row), 256 threads
+// each owning a 4 x 4 patch of the 64 x 64 score tile; scores and P.V are
+// fp32 FMAs from padded fp32 shared memory, folded through the shared
+// online softmax; in bf16, P is rounded to bf16 before P.V as the plain
+// version and the wgmma path round it.
 #include <cuda.h>
 
 #include "attention_common.cuh"
@@ -468,7 +471,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ========================= f32: fp32 FMAs =========================
+// ================ FMA: f32, and bf16 at D = 32 ================
 
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // key rows per tile
@@ -477,15 +480,15 @@ constexpr int kRows = kBQ / 16;  // query rows per thread
 constexpr int kCols = kBK / 16;  // score columns per thread
 constexpr int kPS = kBK + 1;     // padded row stride of the probability tile
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_f32_kernel(
-    const float* __restrict__ q,  // [B, Sq, H, D]
-    const float* __restrict__ k,  // [B, Sk, H_kv, D]
-    const float* __restrict__ v,  // [B, Sk, H_kv, D]
-    float* __restrict__ out,      // [B, Sq, H, D]
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fma_kernel(
+    const T* __restrict__ q,  // [B, Sq, H, D]
+    const T* __restrict__ k,  // [B, Sk, H_kv, D]
+    const T* __restrict__ v,  // [B, Sk, H_kv, D]
+    T* __restrict__ out,      // [B, Sq, H, D]
     int Sq, int Sk, int H, int Hkv, int q_offset, int prefix_pad,
     int prefix_len, float scale) {
-  constexpr int kVec = istpu::Vec16<float>::kN;
+  constexpr int kVec = istpu::Vec16<T>::kN;
   constexpr int kKS = D + 1;        // padded row stride of q_s / k_s
   constexpr int kDC = D / 16;       // output columns per thread
   constexpr int kRowVecs = D / kVec;
@@ -509,8 +512,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     const int col = (idx - row * kRowVecs) * kVec;
     float tmp[kVec];
     if (q0 + row < Sq) {
-      const float* src = q + (((size_t)b * Sq + q0 + row) * H + h) * D + col;
-      istpu::unpack16(*reinterpret_cast<const uint4*>(src), tmp, float());
+      const T* src = q + (((size_t)b * Sq + q0 + row) * H + h) * D + col;
+      istpu::unpack16(*reinterpret_cast<const uint4*>(src), tmp, T());
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) tmp[e] = 0.f;
@@ -546,8 +549,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
       float tk[kVec], tv[kVec];
       if (k0 + row < Sk) {
         const size_t off = (((size_t)b * Sk + k0 + row) * Hkv + hk) * D + col;
-        istpu::unpack16(*reinterpret_cast<const uint4*>(k + off), tk, float());
-        istpu::unpack16(*reinterpret_cast<const uint4*>(v + off), tv, float());
+        istpu::unpack16(*reinterpret_cast<const uint4*>(k + off), tk, T());
+        istpu::unpack16(*reinterpret_cast<const uint4*>(v + off), tv, T());
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) tk[e] = tv[e] = 0.f;
@@ -600,7 +603,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
       for (int j = 0; j < kCols; ++j) {
         const float pr = istpu::online_softmax_prob(s[i][j], m[i]);
         psum += pr;
-        p_s[row * kPS + tx + 16 * j] = pr;
+        // P.V in the input type's P, as the plain version rounds it
+        p_s[row * kPS + tx + 16 * j] =
+            static_cast<float>(istpu::from_float<T>(pr));
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) {
@@ -630,21 +635,22 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     const int qi = q0 + ty * kRows + i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* dst = out + (((size_t)b * Sq + qi) * H + h) * D;
+    T* dst = out + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) dst[tx + 16 * c] = acc[i][c] * inv;
+    for (int c = 0; c < kDC; ++c)
+      dst[tx + 16 * c] = istpu::from_float<T>(acc[i][c] * inv);
   }
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+template <typename T, int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
                        int B, int Sq, int Sk, int H, int Hkv, int q_offset,
                        int prefix_pad, int prefix_len, float scale,
                        cudaStream_t stream) {
   constexpr size_t smem =
       (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS) *
       sizeof(float);
-  auto kernel = flash_f32_kernel<D>;
+  auto kernel = flash_fma_kernel<T, D>;
   static bool smem_raised = false;  // once per instantiation
   if (!smem_raised) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -654,8 +660,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, Hkv,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv,
       q_offset, prefix_pad, prefix_len, scale);
   return cudaGetLastError();
 }
@@ -666,20 +672,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int prefix_pad, int prefix_len, float scale, int dtype,
                    cudaStream_t s) {
   if (dtype == istpu::kF32)
-    return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
-                         prefix_pad, prefix_len, scale, s);
+    return launch_fma<float, D>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                                prefix_pad, prefix_len, scale, s);
   if (dtype != istpu::kBF16) return cudaErrorInvalidValue;
-  if (prefix_pad < 0)
+  if constexpr (D % tc::kSwzCols != 0)  // rows narrower than a swizzled row
+    return launch_fma<__nv_bfloat16, D>(q, k, v, out, B, Sq, Sk, H, Hkv,
+                                        q_offset, prefix_pad, prefix_len,
+                                        scale, s);
+  else if (prefix_pad < 0)
     return launch_bf16<D, false>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
                                  prefix_pad, prefix_len, scale, s);
-  return launch_bf16<D, true>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
-                              prefix_pad, prefix_len, scale, s);
+  else
+    return launch_bf16<D, true>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
+                                prefix_pad, prefix_len, scale, s);
 }
 
 }  // namespace
 
 // Launches K3 (prefix_pad < 0) or K2 (prefix_pad >= 0) on ``stream``: bf16
-// on the tensor cores, f32 on the FMA path.  The caller checks shapes,
+// on the tensor cores at D = 64 and 128, f32 and bf16 at D = 32 on the FMA
+// path.  The caller checks shapes,
 // types, contiguity and 16-byte alignment; this returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a head size or type it was
 // not built for, or a tensor TMA cannot map).
@@ -691,6 +703,9 @@ extern "C" int istpu_flash_attention(const void* q, const void* k,
                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % Hkv != 0) return cudaErrorInvalidValue;
+  if (D == 32)
+    return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset, prefix_pad,
+                      prefix_len, scale, dtype, s);
   if (D == 64)
     return launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset, prefix_pad,
                       prefix_len, scale, dtype, s);

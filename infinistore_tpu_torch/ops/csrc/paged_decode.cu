@@ -517,6 +517,11 @@ extern "C" int istpu_paged_decode(const void* q, const void* cache,
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (dtype == istpu::kBF16) {
+    if (D == 32)
+      return launch_rep<__nv_bfloat16, 32>(R, q, cache, table, lens, out, w,
+                                           cnt, L, B, H, Hkv, n_blocks, Tp,
+                                           max_pages, split_pages, n_splits,
+                                           scale, s);
     if (D == 64)
       return launch_rep<__nv_bfloat16, 64>(R, q, cache, table, lens, out, w,
                                            cnt, L, B, H, Hkv, n_blocks, Tp,
@@ -528,6 +533,10 @@ extern "C" int istpu_paged_decode(const void* q, const void* cache,
                                             max_pages, split_pages, n_splits,
                                             scale, s);
   } else if (dtype == istpu::kF32) {
+    if (D == 32)
+      return launch_rep<float, 32>(R, q, cache, table, lens, out, w, cnt, L,
+                                   B, H, Hkv, n_blocks, Tp, max_pages,
+                                   split_pages, n_splits, scale, s);
     if (D == 64)
       return launch_rep<float, 64>(R, q, cache, table, lens, out, w, cnt, L,
                                    B, H, Hkv, n_blocks, Tp, max_pages,

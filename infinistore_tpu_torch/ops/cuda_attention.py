@@ -20,15 +20,16 @@ CUDA C++ in ``csrc/`` (built by ``build.py`` at first use):
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 only then.  For a CUDA tensor it checks device, type, shape, contiguity and
 alignment, launches the kernel on the current stream, raises if the launch
-fails, and counts the launch in ``LAUNCHES``; it never falls back.  A call
-made while its stream is being captured into a CUDA graph launches nothing:
-it counts in ``CAPTURED`` instead, and whoever replays the graph adds the
-graph's captured launches to ``LAUNCHES`` at each replay (``count_replay``).
-A capturer learns what its own capture recorded from ``capture_tally``,
-which counts the capturing thread's calls only, so two engines capturing
-at once in one process never count each other's.  Every count is also
-kept per launching thread (``BY_THREAD``): in an in-process fleet each
-worker's engine thread launches and replays its own kernels.
+fails, and counts the launch against the launching thread in
+``BY_THREAD``; it never falls back.  ``LAUNCHES`` reads the sum over the
+threads: in an in-process fleet each worker's engine thread launches and
+replays its own kernels.  A call made while its stream is being captured
+into a CUDA graph launches nothing: it counts in ``CAPTURED`` instead, and
+whoever replays the graph adds the graph's captured launches to its own
+thread's count at each replay (``count_replay``).  A capturer learns what
+its own capture recorded from ``capture_tally``, which counts the
+capturing thread's calls only, so two engines capturing at once in one
+process never count each other's.
 
 The plain versions are direct ports of the XLA functions the Pallas kernels
 were tested against: ``paged_decode_attention_xla`` for K1 and the
@@ -43,27 +44,51 @@ import contextlib
 import ctypes
 import math
 import threading
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
 
 from . import build
 
-# launches of each kernel since the last reset (CPU calls are not launches)
-LAUNCHES = {"paged_decode": 0, "flash_causal": 0, "flash_prefix": 0,
-            "paged_decode_alllayers": 0}
+KERNELS = ("paged_decode", "flash_causal", "flash_prefix",
+           "paged_decode_alllayers")
+# launches of each kernel per launching thread (thread ident -> counts),
+# since the last reset (CPU calls are not launches)
+BY_THREAD: dict = {}
 # calls recorded into a CUDA graph under capture, since the last reset: a
 # capture records a launch for each replay to make, and launches nothing
-CAPTURED = dict.fromkeys(LAUNCHES, 0)
-# LAUNCHES per launching thread (thread ident -> counts), since the last reset
-BY_THREAD: dict = {}
-# guards the three tallies: engines on several threads launch at once
+CAPTURED = dict.fromkeys(KERNELS, 0)
+# guards the tallies: engines on several threads launch at once
 _COUNT_LOCK = threading.Lock()
 # the capture tally of the calling thread, while ``capture_tally`` is open
 _TALLY = threading.local()
 
+
+class _Launches(Mapping):
+    """Launches of each kernel since the last reset, over all threads: a
+    read-only view that sums ``BY_THREAD``."""
+
+    def __getitem__(self, kernel: str) -> int:
+        if kernel not in CAPTURED:
+            raise KeyError(kernel)
+        with _COUNT_LOCK:
+            return sum(c[kernel] for c in BY_THREAD.values())
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = _Launches()
+
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (64, 128)  # the head sizes the kernels are built for
+HEAD_DIMS = (32, 64, 128)  # the head sizes the kernels are built for
 _MAX_REP = 16  # query heads per KV head a decode block holds
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -96,17 +121,16 @@ _RETIRED: list = []
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for k in KERNELS:
             CAPTURED[k] = 0
         BY_THREAD.clear()
 
 
 def _launched(counter: str, n: int) -> None:
-    """Count ``n`` launches of ``counter``; the caller holds the lock."""
-    LAUNCHES[counter] += n
+    """Count ``n`` launches of ``counter`` against the calling thread; the
+    caller holds the lock."""
     mine = BY_THREAD.setdefault(threading.get_ident(),
-                                dict.fromkeys(LAUNCHES, 0))
+                                dict.fromkeys(KERNELS, 0))
     mine[counter] += n
 
 

@@ -1611,14 +1611,21 @@ def _make_handler(server: ServingServer):
                 # device-mem watermarks, retraces, speculation deltas)
                 # plus the lifetime summary.  ?limit=N caps the records
                 # returned; /debug/requests rows join here by step_ids.
+                # ``kernel_launches``: the process's launches of each
+                # hand-written kernel (all zero on the CPU, where the
+                # plain versions run).
                 from urllib.parse import parse_qs, urlsplit
+
+                from .ops import cuda_attention
 
                 q = parse_qs(urlsplit(self.path).query)
                 try:
                     limit = int(q["limit"][0])
                 except (KeyError, ValueError, IndexError):
                     limit = None
-                self._json(200, server.stepprof.snapshot(limit=limit))
+                payload = server.stepprof.snapshot(limit=limit)
+                payload["kernel_launches"] = dict(cuda_attention.LAUNCHES)
+                self._json(200, payload)
             elif self.path.split("?", 1)[0] == "/debug/health":
                 # the fleet health plane: watchdog alerts (firing/
                 # cleared, transitions) + the flight recorder's series

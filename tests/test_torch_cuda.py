@@ -61,6 +61,7 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D,n_rep,T", [
     (128, 4, 16), (128, 1, 16), (64, 2, 16), (128, 4, 4), (64, 8, 32),
+    (32, 2, 4), (32, 1, 16),
 ])
 def test_paged_decode_kernel_matches_plain(dev, dtype, D, n_rep, T):
     Hkv = 8 if D == 128 else 2
@@ -120,7 +121,7 @@ def _check_k1(q, cache, table, lens, dtype, pad_rows=0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n_rep", [1, 4, 8, 16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("T", [4, 16, 32])
 def test_paged_decode_split_edges(dev, dtype, n_rep, D, T):
     """K1 with rows one token either side of a split edge, on it, and a row
@@ -270,8 +271,8 @@ def test_paged_decode_two_streams(dev):
 
 
 # head sizes and query heads per KV head of the flash cases (H_kv = 2)
-_FLASH_HEADS = [(64, 1), (64, 2), (64, 4), (64, 8), (128, 1), (128, 4),
-                (128, 8)]
+_FLASH_HEADS = [(32, 2), (64, 1), (64, 2), (64, 4), (64, 8), (128, 1),
+                (128, 4), (128, 8)]
 # K3: Sq on both sides of the 64-row warpgroup and 128-row block edges, at
 # q_offset 0 and 190 (not a tile multiple), and the store tail (16 rows at
 # q_offset 1488)

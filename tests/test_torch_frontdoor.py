@@ -722,7 +722,8 @@ def test_two_concurrent_captures_count_only_their_own_launches(monkeypatch):
     """Two engines capture on two threads at once, their calls interleaved
     step by step: each graph records only its own thread's kernel calls
     (not the global ``CAPTURED`` delta, which holds both), and replays add
-    them to ``LAUNCHES`` and to the replaying thread's ``BY_THREAD``."""
+    them to the replaying thread's ``BY_THREAD``, which ``LAUNCHES``
+    sums."""
     from infinistore_tpu_torch.engine import InferenceEngine
     from infinistore_tpu_torch.kv import PagedCacheConfig
     from infinistore_tpu_torch.models import TINY, init_params
