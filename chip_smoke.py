@@ -19,17 +19,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    each of ``bench_gpu.DECODE_SHAPES``, timed at each beside its bound,
    with GB/s and the split count), with the kernel's, the plain version's
    and a one-call PyTorch yardstick's median device times beside the least
-   time the card could take; K3 and K2 also at the serving path's own
-   chunk shapes beside SDPA, with TFLOP/s and share of the bound; K4 also
-   ``torch.equal`` to 32 K1 launches on the same inputs;
+   time the card could take; K2 also with its length in device memory:
+   one launch captured into a CUDA graph, the length changed in place
+   between replays (0, 1, 127, 128, 129, 1024), each replay ``torch.equal``
+   to the host-int launch and held against the plain version; K3 and K2
+   also at the serving path's own chunk shapes beside SDPA, with TFLOP/s
+   and share of the bound; K4 also ``torch.equal`` to 32 K1 launches on
+   the same inputs;
 3. model path: Llama-3-8B at full width and depth with random bf16 weights
    (seeded ``torch.Generator``) served through ``InferenceEngine`` and
    ``Scheduler`` for 8 requests (shared prefix, chunked prefill, mixed
-   greedy and top-k/top-p sampling), decoding through the engine's CUDA
-   graphs (replays > 0), with every kernel's launch count over that run
-   (K1 counted per replay), TTFT and TPOT, and one greedy decode step held
-   against a cold prefill; then a cold 1500-token prefill split by kind of
-   kernel under ``torch.profiler``, and the B=8 decode step through the
+   greedy and top-k/top-p sampling), prefilling and decoding through the
+   engine's CUDA graphs (prefill replays holding K3 and K2, decode replays
+   > 0; the prefill keys printed), with every kernel's launch count over
+   that run (counted per replay), TTFT and TPOT, and one greedy decode step
+   held against a cold prefill; then a cold 1500-token prefill through the
+   prefill graphs and through the eager chunk body (wall time, device time
+   and kernels per chunk under ``torch.profiler``, host time per replay,
+   captures), each prefill key's replay ``torch.equal`` to its eager body,
+   the prefix copy's device time, and the B=8 decode step through the
    graphs and through the eager step body: tokens and final logits equal,
    bare ms/step of each, device busy share, host time per replay, capture
    seconds and the number of graphs;
@@ -56,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    record adopting (prompt tokens - 1) // 16 chunks from the store, the
    sequential requests' adopted pages bitwise equal to the prefill
    worker's and their first greedy token equal to its local answer, K1/K2/
-   K3 launched by the two workers' engine threads and by no other thread;
+   K3 launched by the two workers' engine threads and by no other thread,
+   the prefill worker replaying prefill graphs that hold K3 and K2;
    TTFT, TPOT, handoff and store_load_s printed; then the four-process
    tiny fleet (``examples.fleet_processes --smoke --device cuda``) must
    exit 0, its workers having launched K3 and K1 (head size 32);
@@ -310,6 +319,47 @@ def phase_kernels(torch, np, ca, bench_gpu, dev) -> dict:
                        Sq, plen + Sq, plen * Sq + Sq * (Sq + 1) / 2),
     )
 
+    # ---- K2 reading its length from device memory, as the engine's prefill
+    # graphs run it: one launch captured into a CUDA graph at the same
+    # shape, the length changed in place between replays; each replay
+    # torch.equal to the host-int launch at that length and held against
+    # the plain version over the same device length
+    dlen = torch.zeros((), dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(dtype, 1, Sq, pad + Sq, 5)
+        ca.flash_prefix_attention_cuda(q, k, v, pad, dlen)  # first-call set-up
+        torch.cuda.synchronize()
+        k2_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(k2_graph):
+            out = ca.flash_prefix_attention_cuda(q, k, v, pad, dlen)
+        errs = []
+        for n in (0, 1, 127, 128, 129, pad):
+            dlen.fill_(n)
+            k2_graph.replay()
+            host = ca.flash_prefix_attention_cuda(q, k, v, pad, n)
+            torch.cuda.synchronize()
+            check(torch.equal(out, host), f"K2 replayed at prefix_len={n} "
+                  f"differs from the host-int launch ({dtype})")
+            errs.append(compare(
+                f"K2 graph replay, device prefix_len={n} (== host-int launch)",
+                out, ca.causal_attention_xla(q, k, v, prefix_pad=pad,
+                                             prefix_len=dlen), dtype))
+    dlen.fill_(plen)  # the length K2's timing above ran at
+    rec["flash_prefix_device_len"] = dict(
+        name="flash_prefix_attention_cuda[prefix_len on the device]",
+        source=REPO_SOURCE + "flash_attention.cu",
+        replaces=TPU_SOURCE + "247", max_abs_err=max(errs),
+        **flash_timing(f"K2 bf16 pad={pad} device len={plen} Sq={Sq} "
+                       f"(one captured launch replayed)",
+                       k2_graph.replay,
+                       lambda: sdpa(q, k, v, attn_mask=mask),
+                       lambda: ca.causal_attention_xla(
+                           q, k, v, prefix_pad=pad, prefix_len=dlen),
+                       Sq, plen + Sq,
+                       plen * Sq + Sq * (Sq + 1) / 2),
+    )
+    del k2_graph, out, host
+
     # ---- K3 and K2 at the serving path's own shapes: a cold 1500-token
     # prompt in 512-token chunks runs K3 at Sq = Sk = 512, then K2 over a
     # 512- and a 1024-row bucket (bf16, as the model path runs them)
@@ -435,7 +485,7 @@ def logits_agree(torch, got, want, what: str, max_err: bool = True) -> None:
           f"{what}: logits disagree")
 
 
-def phase_model(torch, ca, dev, card: str, params, cfg, pc):
+def phase_model(torch, ca, bench_gpu, dev, card: str, params, cfg, pc):
     """The serving path; returns its launch counts, the decode-step
     profile, the engine and each request's TTFT (ms) by prompt length."""
     from infinistore_tpu_torch.engine import InferenceEngine, Scheduler
@@ -489,6 +539,15 @@ def phase_model(torch, ca, dev, card: str, params, cfg, pc):
           f"{engine.graph_capture_s:.3f} s")
     check(engine.graph_replays > 0,
           "the serving path decoded without replaying a CUDA graph")
+    print(f"[model] prefill graphs: {engine.prefill_replays} replays of "
+          f"{len(engine._prefill_graphs)} keys, {engine.prefill_captures} "
+          f"captures in {engine.prefill_capture_s:.3f} s; launches made by "
+          f"the replays {json.dumps(engine.prefill_graph_launches)}; keys "
+          f"(route, prefix capacity, chunk bucket) "
+          f"{sorted(engine._prefill_graphs)}")
+    check(engine.prefill_graph_launches.get("flash_causal", 0) > 0
+          and engine.prefill_graph_launches.get("flash_prefix", 0) > 0,
+          "the serving path replayed no prefill graph holding K3 and K2")
     reused = finished[ids[3]].state.reused_chunks
     check(reused == 512 // pc.block_tokens,
           f"the shared-prefix request reused {reused} chunks, wanted 32")
@@ -519,7 +578,8 @@ def phase_model(torch, ca, dev, card: str, params, cfg, pc):
     logits_agree(torch, dec, cold[0, -1],
                  f"[model] decode-step logits vs cold prefill ({len(p) + 1} "
                  f"tokens)")
-    prof = phase_profile(torch, engine, [p for p, _n, _kw in reqs], card)
+    prof = phase_profile(torch, bench_gpu, engine,
+                         [p for p, _n, _kw in reqs], card)
     # each request's TTFT by its prompt length (all 8 submitted at once)
     ttft_by_len = {len(p): (finished[i].t_first - finished[i].t_submit) * 1e3
                    for (p, _n, _kw), i in zip(reqs, ids)}
@@ -551,11 +611,14 @@ def _device_time_by_kind(torch, prof):
     return groups, top, n_kernels
 
 
-def phase_profile(torch, engine, prompts, card: str,
+def phase_profile(torch, bench_gpu, engine, prompts, card: str,
                   steps: int = 16) -> dict:
-    """Where a cold prefill's and a decode step's time go.  A fresh
-    1500-token prompt prefilled bare, then another under ``torch.profiler``
-    (device time by kind); then a ``steps``-token ``decode_batch`` at B=8
+    """Where a cold prefill's and a decode step's time go.  Fresh
+    1500-token prompts prefilled through the prefill graphs and through the
+    eager chunk body, bare (twice each, in turns) and under
+    ``torch.profiler`` (device time by kind, kernels per chunk), then each
+    prefill key's replay against its eager body and the prefix copy's
+    device time; then a ``steps``-token ``decode_batch`` at B=8
     through the graphs and through the eager step body, each timed bare and
     under the profiler (busy share against the bare wall time).  Returns,
     per run ("graph", "eager"), ms/step bare and busy (0 when the profiler
@@ -563,34 +626,101 @@ def phase_profile(torch, engine, prompts, card: str,
     from torch.profiler import ProfilerActivity, profile
 
     # a cold prefill of a fresh 1500-token prompt: 512-token chunks, the
-    # first through K3, the others through K2
+    # first through K3, the others through K2 (keys the serving run has
+    # captured), through the prefill graphs and through the same chunk
+    # body run eagerly, each bare and under the profiler
     def fresh(seed):
         return torch.randint(0, engine.cfg.vocab_size, (1500,),
                              generator=torch.Generator().manual_seed(seed)
                              ).tolist()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.release(engine.prefill(fresh(7)))
-    torch.cuda.synchronize()
-    print(f"[profile] cold prefill of 1500 tokens (3 chunks of 512): "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.release(engine.prefill(fresh(9)))
+    def cold(seed, eager):
+        pp = engine.prefill_start(fresh(seed))
+        st = None
+        while st is None:
+            st = engine.prefill_step(pp, eager=eager)
+        engine.release(st)
+
+    chunks = -(-1500 // engine.prefill_chunk)
+    pre: dict = {}
+    for name, seed in (("graph", 7), ("eager", 8), ("graph", 9),
+                       ("eager", 10)):
+        replays0, host0 = engine.prefill_replays, engine.prefill_replay_s
         torch.cuda.synchronize()
-    groups, top, n_kernels = _device_time_by_kind(torch, prof)
-    busy = sum(groups.values())
-    if busy:
-        by_kind = {k: round(v, 4) for k, v in sorted(groups.items(),
-                                                     key=lambda kv: -kv[1])}
-        print(f"[profile] cold prefill of 1500 tokens, device time "
-              f"{busy:.3f} ms in {n_kernels} kernels; ms by kind "
-              f"{json.dumps(by_kind)}")
-        for ms, n, name in sorted(top, reverse=True)[:6]:
-            print(f"[profile]   {ms:8.4f} ms  {n:5d}  {name}")
-    else:
-        print("[profile] the profiler saw no device time in the prefill: "
-              "not measured")
+        t0 = time.perf_counter()
+        cold(seed, name == "eager")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        replays = engine.prefill_replays - replays0
+        r = pre.setdefault(name, {"wall_ms": []})
+        r["wall_ms"].append(wall)
+        r["replays"] = replays
+        r["host_us_per_replay"] = (1e6 * (engine.prefill_replay_s - host0)
+                                   / replays) if replays else None
+    for name, seed in (("graph", 11), ("eager", 12)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cold(seed, name == "eager")
+            torch.cuda.synchronize()
+        groups, top, n_kernels = _device_time_by_kind(torch, prof)
+        busy = sum(groups.values())
+        r = pre[name]
+        r.update(busy_ms=busy, kernels=n_kernels)
+        walls = ", ".join(f"{w:.3f}" for w in r["wall_ms"])
+        if busy:
+            by_kind = {k: round(v, 4) for k, v in sorted(
+                groups.items(), key=lambda kv: -kv[1])}
+            print(f"[profile] cold prefill of 1500 tokens ({chunks} chunks of "
+                  f"{engine.prefill_chunk}) {name}: wall {walls} ms bare; "
+                  f"device time {busy:.3f} ms in {n_kernels} kernels "
+                  f"({n_kernels / chunks:.0f} per chunk); ms by kind "
+                  f"{json.dumps(by_kind)}")
+            for ms, n, kname in sorted(top, reverse=True)[:6]:
+                print(f"[profile]   {ms:8.4f} ms  {n:5d}  {kname}")
+        else:
+            print(f"[profile] cold prefill of 1500 tokens {name}: wall "
+                  f"{walls} ms bare; the profiler saw no device time: "
+                  f"not measured")
+    g, e = pre["graph"], pre["eager"]
+    check(g["replays"] == chunks and e["replays"] == 0,
+          f"the cold prefill replayed {g['replays']} prefill graphs "
+          f"(wanted {chunks}), eagerly {e['replays']}")
+    print(f"[profile] cold prefill of 1500 tokens: graphs "
+          f"{min(g['wall_ms']):.3f} ms vs eager body {min(e['wall_ms']):.3f} "
+          f"ms wall (best of 2, "
+          f"{min(e['wall_ms']) / min(g['wall_ms']):.2f}x); host "
+          f"{g['host_us_per_replay']:.1f} us per replay; "
+          f"{engine.prefill_captures} prefill captures in "
+          f"{engine.prefill_capture_s:.3f} s; {len(engine._prefill_graphs)} "
+          f"keys {sorted(engine._prefill_graphs)} ({card})")
+
+    # each key's graph against its eager body at full width: one replay
+    # and one eager run over the key's static buffers as the last chunk
+    # left them, logits and KV torch.equal
+    for key, pg in sorted(engine._prefill_graphs.items()):
+        if pg.graph is None:  # a key only the eager body has run
+            continue
+        with engine._on_engine_stream():
+            pg.graph.replay()
+            replayed = [t.clone() for t in pg.out]
+            body = engine._prefill_body(pg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(replayed, body))
+        print(f"[profile] prefill graph {key}: replay torch.equal to the "
+              f"eager body (logits and KV): {same}")
+        check(same, f"prefill graph {key} differs from its eager body")
+    # the prefix copy into a key's static buffer before each K2 replay
+    # (copy design: several partial prefills share a key), at 1024 rows
+    pg = engine._prefill_graphs[("prefix", 1024, engine.prefill_chunk)]
+    src = torch.randn_like(pg.buf, dtype=torch.float32).to(pg.buf.dtype)
+    n_bytes = 2 * pg.buf.numel() * pg.buf.element_size()
+    ms = bench_gpu.median_device_ms(
+        torch, lambda: pg.buf[:, :, :, :1024].copy_(src[:, :, :, :1024]), 10,
+        torch.empty(64 << 20, dtype=torch.uint8, device=pg.buf.device))
+    print(f"[profile] prefix copy into a key's buffer, 1024 rows "
+          f"({n_bytes / 2 ** 20:.0f} MiB read + written): {ms:.4f} ms "
+          f"(bound {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes)")
+    del src
 
     # the B=8 decode step through the graphs and through the eager step
     # body.  Both bare runs start from the same point: the states are
@@ -893,10 +1023,12 @@ def _store_case(torch, dev, params, cfg, pc, port: int, transport: str,
                                            model_id=f"smoke-{transport}"))
         a, b = engines
         gen = torch.Generator().manual_seed(seed)
-        # warm-up on a short prompt of its own: A's first push page-locks
-        # the store's pool mapping and B's first load allocates pinned
-        # staging, one-time costs kept out of the timed hop
-        warm = torch.randint(0, cfg.vocab_size, (80,), generator=gen).tolist()
+        # warm-up on a 1500-token prompt of its own: A's first push
+        # page-locks the store's pool mapping, B's first load allocates
+        # pinned staging, and A captures the prefill graphs of the timed
+        # prompt's keys: one-time costs kept out of the timed hop
+        warm = torch.randint(0, cfg.vocab_size, (1500,), generator=gen
+                             ).tolist()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         a.release(a.prefill(warm))
@@ -904,7 +1036,7 @@ def _store_case(torch, dev, params, cfg, pc, port: int, transport: str,
         t1 = time.perf_counter()
         b.release(b.prefill(warm))
         torch.cuda.synchronize()
-        print(f"{tag} warm-up (80 tokens): A's first prefill and push "
+        print(f"{tag} warm-up (1500 tokens): A's first prefill and push "
               f"{(t1 - t0) * 1e3:.3f} ms"
               f"{' (page-locks the pool)' if transport == 'shm' else ''}, "
               f"B's first adoption {(time.perf_counter() - t1) * 1e3:.3f} ms")
@@ -1121,12 +1253,16 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
             return torch.randint(0, cfg.vocab_size, (n,), generator=rng
                                  ).tolist()
 
-        # warm-up through the router on a prompt of its own (kernels'
-        # first launches, cuBLAS, the decode worker's B=1 graph, both
-        # workers page-locking the pool): not counted, not timed
+        # warm-up through the router on prompts of their own, one of each
+        # timed length (kernels' first launches, cuBLAS, the decode
+        # worker's B=1 graph, both workers page-locking the pool, the
+        # prefill worker capturing the prefill graphs of the timed
+        # prompts' keys): not counted, not timed
         t_setup = time.perf_counter() - t_phase
-        _fleet_requests(fd.port, [prompt(100)], "[fleet] warm-up",
-                        ["fleet-warm"], concurrent=False)
+        warm = [prompt(n) for n in (100, *FLEET_LENGTHS)]
+        _fleet_requests(fd.port, warm, "[fleet] warm-up",
+                        [f"fleet-warm-{i}" for i in range(len(warm))],
+                        concurrent=False)
         t_warm = time.perf_counter() - t_phase - t_setup
         seq = [prompt(n) for n in FLEET_LENGTHS]
         par = [prompt(n + 5 if n < 1500 else n - 5)  # fresh, other lengths
@@ -1137,6 +1273,9 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
         handoff0 = parse_prometheus_text(data.decode())
 
         ca.reset_launches()
+        prefill0 = [(e.prefill_replays, e.prefill_captures,
+                     e.prefill_capture_s, dict(e.prefill_graph_launches))
+                    for e in engines]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         adopted_equal = []
@@ -1170,8 +1309,26 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
                    for role, srv in servers.items()}
         by_worker = {role: by_thread.get(t, dict.fromkeys(launches, 0))
                      for t, role in workers.items()}
+        # the prefill graphs each worker replayed over the routed traffic,
+        # the kernel launches those replays made, and the keys it captured
+        # there (each a first-use eager chunk plus a capture in some
+        # request's TTFT)
+        replayed = {}
+        for role, e, (n0, c0, s0, l0) in zip(("prefill", "decode"), engines,
+                                             prefill0):
+            replayed[role] = {
+                "replays": e.prefill_replays - n0,
+                "captures": e.prefill_captures - c0,
+                "capture_s": round(e.prefill_capture_s - s0, 3),
+                "launches": {k: v - l0.get(k, 0)
+                             for k, v in e.prefill_graph_launches.items()}}
         print(f"[fleet] launches on the fleet path: {json.dumps(launches)}; "
-              f"by worker {json.dumps(by_worker)}")
+              f"by worker {json.dumps(by_worker)}; prefill graph replays by "
+              f"worker {json.dumps(replayed)}")
+        pl = replayed["prefill"]["launches"]
+        check(pl.get("flash_causal", 0) > 0 and pl.get("flash_prefix", 0) > 0,
+              f"[fleet] the prefill worker replayed no prefill graphs holding "
+              f"K3 and K2: {replayed['prefill']}")
         check(all(launches[k] > 0 for k in MODEL_PATH_KERNELS),
               f"a kernel was not launched on the fleet path: {launches}")
         others = {t: c for t, c in by_thread.items()
@@ -1322,7 +1479,7 @@ def main() -> int:
         rec = phase_kernels(torch, np, ca, bench_gpu, dev)
         params, cfg, pc = llama3_8b(torch, dev)
         launches, prof, engine, ttft_by_len = phase_model(
-            torch, ca, dev, card, params, cfg, pc)
+            torch, ca, bench_gpu, dev, card, params, cfg, pc)
         phase_serve(torch, ca, engine, cfg, card)
         del engine
         overhead = phase_overhead(torch, ca, bench_gpu, prof)
@@ -1349,8 +1506,11 @@ def main() -> int:
                 store.kill()
                 store.wait()
     # each kernel's launches over the path that runs it: K1-K3 the serving
-    # path, K4 the overhead path
+    # path, K4 the overhead path.  The engine hands K2 its length only as a
+    # device tensor (the prefill graphs' ``plen``), so every K2 launch of
+    # the serving path is a device-length launch
     launches["paged_decode_alllayers"] = overhead["paged_decode_alllayers"]
+    launches["flash_prefix_device_len"] = launches["flash_prefix"]
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": launches[key],

@@ -16,15 +16,28 @@ roles of a disaggregated deployment:
 Store pages are the reference's bytes under the reference's keys, so a JAX
 engine and this one hand prompts to each other through one store.
 
-Prefill runs eagerly.  Decode is the counterpart of the reference's
-compiled ``_decode_many`` (one ``lax.scan`` per decode chunk, sampling on
-the device): one step body over static device buffers (logits, positions,
-block table, per-row sampling vectors, penalty state, an on-device step
-index, the chunk's output tokens) that, on the card, is captured once per
-(batch bucket, table-width bucket, variant, logprobs, penalties) key into a
-CUDA graph and replayed ``decode_chunk`` times per host sync; on the CPU
-the same body runs eagerly.  A failed capture or replay raises: nothing
-falls back to eager steps.  Where the reference donates the cache to a
+Both halves of the model run as CUDA graphs on the card, each one Python
+body over static device buffers that runs eagerly on the CPU:
+
+* a prefill chunk is the counterpart of the reference's ``_prefill_jit``:
+  one chunk body over the chunk's tokens padded to a power-of-two bucket,
+  a device ``prefix_len`` and the prefix KV at the bucket's capacity,
+  captured once per (route, prefix capacity, chunk bucket) key, so one
+  graph serves every prefix length of a bucket as the reference's traced
+  ``prefix_len`` does (K2 reads the length from device memory);
+* decode is the counterpart of the reference's compiled ``_decode_many``
+  (one ``lax.scan`` per decode chunk, sampling on the device): one step
+  body over static device buffers (logits, positions, block table, per-row
+  sampling vectors, penalty state, an on-device step index, the chunk's
+  output tokens), captured once per (batch bucket, table-width bucket,
+  variant, logprobs, penalties) key and replayed ``decode_chunk`` times per
+  host sync.
+
+A key's first use runs its body eagerly on the engine's stream and is
+captured after it.  A failed capture or replay raises: nothing falls back
+to the eager body.  The single chunk over an exact adopted prefix,
+``prefill_batch``'s padded groups and ``prompt_logprobs`` run eagerly, as
+their shapes follow the prompt.  Where the reference donates the cache to a
 compiled scatter, this engine updates it in place (``index_put_`` /
 ``copy_``).  Page bookkeeping stays in Python, as in the reference.
 
@@ -375,7 +388,6 @@ class PartialPrefill:
     S: int               # unpadded suffix length
     off: int = 0         # next chunk offset into padded
     off_last: int = 0
-    logits: Optional[torch.Tensor] = None
     # provenance carried onto the SequenceState (see its fields)
     local_chunks: int = 0
     store_chunks: int = 0
@@ -486,15 +498,24 @@ class InferenceEngine:
         # The stream is the engine's: two engines in one process never
         # share K1's per-stream workspace.
         self._graphs: Dict[tuple, "_DecodeGraph"] = {}
+        # the prefill graphs, by (route, prefix capacity, chunk bucket)
+        self._prefill_graphs: Dict[tuple, "_PrefillGraph"] = {}
         self._pool = None
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
         # capture count and seconds, replays and the host seconds spent
-        # issuing them (no sync inside): the graphs' own account
+        # issuing them (no sync inside): the decode graphs' own account,
+        # then the prefill graphs', with the kernel launches their replays
+        # made
         self.graph_captures = 0
         self.graph_capture_s = 0.0
         self.graph_replays = 0
         self.graph_replay_s = 0.0
+        self.prefill_captures = 0
+        self.prefill_capture_s = 0.0
+        self.prefill_replays = 0
+        self.prefill_replay_s = 0.0
+        self.prefill_graph_launches: Dict[str, int] = {}
         # the vocabulary's share of the counter-based sampling hash
         self._vocab_hash = (torch.arange(cfg.vocab_size, dtype=torch.long,
                                          device=self.device)
@@ -613,55 +634,69 @@ class InferenceEngine:
             store_load_s=store_load_s,
         )
 
-    def prefill_step(self, pp: PartialPrefill) -> Optional[SequenceState]:
+    def prefill_step(self, pp: PartialPrefill,
+                     eager: bool = False) -> Optional[SequenceState]:
         """One prefill chunk forward plus its cache landing.  Returns the
-        finished SequenceState on the last chunk, else None."""
+        finished SequenceState on the last chunk, else None.
+
+        The chunk runs through its key's prefill-graph body
+        (``_prefill_chunk``): on the card the key's CUDA graph replays it,
+        and ``eager=True`` runs the body eagerly there too (the graphs'
+        yardstick in the card tests and ``chip_smoke.py``).  The single
+        chunk over an exact adopted prefix runs ``prefill_forward`` itself
+        (K3 at ``q_offset = P``): its shape follows ``P``."""
         T = self.pc.block_tokens
         off, C = pp.off, pp.C
         chunk = pp.padded[off: off + C]
-        arr = self._tokens([chunk])
-        if pp.buf is None:
-            pp.logits, kv = prefill_forward(self.params, self.cfg, arr)
-        elif pp.single:
-            pp.logits, kv = prefill_forward(self.params, self.cfg, arr,
-                                            prefix_kv=pp.buf)
-        else:
-            pp.logits, kv = prefill_forward(self.params, self.cfg, arr,
-                                            prefix_kv=pp.buf,
-                                            prefix_len=pp.plen)
-        # the chunk forward + its cache landing: one prefill dispatch unit
-        # for the step profiler
-        _stepprof.note_dispatch("prefill")
-        n_pg = len(chunk) // T
-        self.cache = _write_prefill_pages(
-            self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
-        )
-        prev_done, pp.done = pp.done, pp.done + n_pg
-        pp.off_last = off
-        # stream this chunk's complete pages to the store NOW: the gather
-        # is queued behind the cache write on the compute stream, the
-        # streamer's copies run while the next chunk computes
-        if self.transfer is not None:
-            lo, hi = max(prev_done, pp.reused), min(pp.done, pp.n_complete)
-            if hi > lo:
-                self._streamer.submit(
-                    self.transfer.gather_pages(self.cache, pp.block_ids[lo:hi]),
-                    pp.keys[lo:hi],
-                )
-        pp.off = off + C
-        if pp.off < len(pp.padded):
-            # another chunk attends to this KV: grow the bucketed prefix
-            # buffer and append in place
-            need = pp.plen + len(chunk)
-            ncap = _round_up_pow2(need, C)
-            if pp.buf is None:
-                pp.buf = _pad_seq_axis(kv, ncap)
+        n = len(chunk)
+        with self._on_engine_stream():
+            if pp.single and pp.buf is not None:
+                logits, kv = prefill_forward(
+                    self.params, self.cfg, self._tokens([chunk]),
+                    prefix_kv=pp.buf)
             else:
-                if ncap > pp.buf.shape[3]:
-                    pp.buf = _pad_seq_axis(pp.buf, ncap)
-                pp.buf[:, :, :, pp.plen: need] = kv
-            pp.plen = need
-            return None
+                logits, kv = self._prefill_chunk(pp, chunk, eager)
+                kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
+            # the chunk forward + its cache landing: one prefill dispatch
+            # unit for the step profiler
+            _stepprof.note_dispatch("prefill")
+            n_pg = n // T
+            self.cache = _write_prefill_pages(
+                self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
+            )
+            prev_done, pp.done = pp.done, pp.done + n_pg
+            pp.off_last = off
+            # stream this chunk's complete pages to the store NOW: the
+            # gather is queued behind the cache write on the compute
+            # stream, the streamer's copies run while the next chunk
+            # computes
+            if self.transfer is not None:
+                lo, hi = max(prev_done, pp.reused), min(pp.done,
+                                                        pp.n_complete)
+                if hi > lo:
+                    self._streamer.submit(
+                        self.transfer.gather_pages(self.cache,
+                                                   pp.block_ids[lo:hi]),
+                        pp.keys[lo:hi],
+                    )
+            pp.off = off + C
+            if pp.off < len(pp.padded):
+                # another chunk attends to this KV: grow the bucketed
+                # prefix buffer and append in place
+                need = pp.plen + n
+                ncap = _round_up_pow2(need, C)
+                if pp.buf is None:
+                    pp.buf = _pad_seq_axis(kv, ncap)
+                else:
+                    if ncap > pp.buf.shape[3]:
+                        pp.buf = _pad_seq_axis(pp.buf, ncap)
+                    pp.buf[:, :, :, pp.plen: need] = kv
+                pp.plen = need
+                return None
+            # a copy, and taken now: a view would pin the chunk's whole
+            # [C, V] logits, and a graph's logits are rewritten by the
+            # key's next replay
+            last_logits = logits[0, (pp.S - 1) - pp.off_last].clone()
 
         # finished.  Strict durability joins the pusher so the pages are
         # durably in the store before the state is visible; relaxed returns
@@ -680,14 +715,95 @@ class InferenceEngine:
             block_ids=pp.block_ids,
             chunk_keys=pp.keys,
             reused_chunks=pp.reused,
-            # a copy: a view would pin the chunk's whole [C, V] logits
-            last_logits=pp.logits[0, (pp.S - 1) - pp.off_last].clone(),
+            last_logits=last_logits,
             local_chunks=pp.local_chunks, store_chunks=pp.store_chunks,
             store_load_s=pp.store_load_s,
         )
         self._next_id += 1
         self.seqs[state.seq_id] = state
         return state
+
+    @contextlib.contextmanager
+    def _on_engine_stream(self):
+        """Run the block on the engine's stream (on the card), ordered after
+        the caller's stream on entry and before it on exit: every graph of
+        the engine is captured and replayed there, one at a time."""
+        stream = self._stream
+        if stream is None:
+            yield
+            return
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                yield
+        finally:
+            current.wait_stream(stream)
+
+    def _prefill_chunk(self, pp: PartialPrefill, chunk: List[int],
+                       eager: bool):
+        """A chunk's (logits, kv) through its key's prefill-graph body:
+        the tokens padded to the bucket, ``pp``'s valid prefix rows and
+        length copied into the key's static buffers, then the body run
+        eagerly (on the CPU, with ``eager``, and at a key's first use, which
+        captures the key after it) or the key's graph replayed.  The
+        outputs hold the bucket's rows; a replay's are the graph's own
+        tensors, rewritten by the key's next replay."""
+        n = len(chunk)
+        Cb = _round_up_pow2(n, self.pc.block_tokens)
+        if pp.buf is None:
+            key = ("causal", 0, Cb)
+        else:
+            key = ("prefix", pp.buf.shape[3], Cb)
+        g = self._prefill_graphs.get(key)
+        if g is None:
+            g = self._prefill_graphs[key] = _PrefillGraph(
+                key, self.cfg, self.params["lm_head"].dtype, self.device)
+        g.tokens.copy_(torch.tensor([chunk + [0] * (Cb - n)],
+                                    dtype=torch.int32))
+        if g.buf is not None:
+            # several partial prefills share the key: each replay brings
+            # its own prefix in (the slack past ``plen`` is masked)
+            g.plen.fill_(pp.plen)
+            g.buf[:, :, :, :pp.plen].copy_(pp.buf[:, :, :, :pp.plen])
+        if eager or self.device.type != "cuda":
+            return self._prefill_body(g)
+        if g.graph is None:
+            out = self._prefill_body(g)
+            g.out, secs = self._capture_graph(
+                g, lambda: self._prefill_body(g), f"prefill{key}")
+            g.param_ptrs = self._param_ptrs()
+            self.prefill_captures += 1
+            self.prefill_capture_s += secs
+            return out
+        if g.param_ptrs != self._param_ptrs():
+            # the graph reads the weights it was captured with
+            raise RuntimeError("the weights moved since this prefill graph "
+                               "was captured")
+        t0 = time.perf_counter()
+        g.graph.replay()
+        ca.count_replay(g.captured)
+        self.prefill_replays += 1
+        self.prefill_replay_s += time.perf_counter() - t0
+        for k, c in g.captured.items():
+            self.prefill_graph_launches[k] = (
+                self.prefill_graph_launches.get(k, 0) + c)
+        return g.out
+
+    def _prefill_body(self, g: "_PrefillGraph"):
+        """The prefill chunk body over ``g``'s static buffers: K3 over the
+        bucket's tokens, or K2 over the prefix buffer with the device
+        ``prefix_len``.  The same code runs eagerly on the CPU and is what
+        a CUDA graph captures on the card."""
+        if g.buf is None:
+            return prefill_forward(self.params, self.cfg, g.tokens)
+        return prefill_forward(self.params, self.cfg, g.tokens,
+                               prefix_kv=g.buf, prefix_len=g.plen)
+
+    def _param_ptrs(self) -> tuple:
+        p = self.params
+        return tuple(t.data_ptr() for t in (
+            p["embed"], p["lm_head"], p["ln_out"], *p["layers"].values()))
 
     def adopt_prefill(self, tokens: Sequence[int], kv: torch.Tensor,
                       last_logits: torch.Tensor) -> SequenceState:
@@ -910,10 +1026,22 @@ class InferenceEngine:
         g.step.add_(1)
 
     def _capture(self, g: "_DecodeGraph") -> None:
-        """Capture ``_step(g)`` into a CUDA graph on the engine's stream.
-        The caller has just run one eager step on that stream, so K1's
-        workspace is sized and cuBLAS is set up for these shapes.  A
-        failed capture raises."""
+        """Capture ``_step(g)`` into ``g``'s CUDA graph.  The caller has
+        just run one eager step on the engine's stream, so K1's workspace
+        is sized and cuBLAS is set up for these shapes."""
+        _, secs = self._capture_graph(g, lambda: self._step(g),
+                                      f"decode_step{g.key}")
+        g.cache_ptr = self.cache.data_ptr()
+        self.graph_captures += 1
+        self.graph_capture_s += secs
+
+    def _capture_graph(self, g, body, name: str):
+        """Capture ``body()`` into a CUDA graph on the engine's stream, out
+        of the engine's graph pool; sets ``g.graph`` and ``g.captured`` (the
+        launches each replay makes), notes the capture under ``name`` for
+        the step profiler (``/debug/engine`` shows it as a compile) and
+        returns what ``body`` returned (the graph's output tensors) and the
+        capture's seconds.  A failed capture raises."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -927,16 +1055,14 @@ class InferenceEngine:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
-                self._step(g)
+                out = body()
             finally:
                 graph.capture_end()
         secs = time.perf_counter() - t0
         g.captured = tally
         g.graph = graph
-        g.cache_ptr = self.cache.data_ptr()
-        self.graph_captures += 1
-        self.graph_capture_s += secs
-        _stepprof.note_capture(f"decode_step{g.key}", secs)
+        _stepprof.note_capture(name, secs)
+        return out, secs
 
     def _run_chunk(self, g: "_DecodeGraph", chunk: int, eager: bool) -> None:
         """``chunk`` decode steps over ``g``'s buffers.  On the CPU (and
@@ -1129,12 +1255,7 @@ class InferenceEngine:
         table = self._block_table(states, pad_to=Bp)
         g = self._decode_graph((Bp, table.shape[1], variant, logprobs,
                                 penalized, self.decode_chunk))
-        dev = self.device
-        stream = self._stream if dev.type == "cuda" else None
-        if stream is not None:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-        with (torch.cuda.stream(stream) if stream is not None
-              else contextlib.nullcontext()):
+        with self._on_engine_stream():
             torch.stack([st.last_logits for st in states], out=g.logits[:B])
             g.logits[B:].zero_()
             g.pos.copy_(torch.from_numpy(np.asarray(
@@ -1192,8 +1313,6 @@ class InferenceEngine:
                         )
                 remaining -= chunk
             rows = g.logits[:B].clone()
-        if stream is not None:
-            torch.cuda.current_stream(dev).wait_stream(stream)
         for b, st in enumerate(states):
             st.tokens.extend(out[b])
             st.last_logits = rows[b]
@@ -1329,7 +1448,7 @@ class InferenceEngine:
         ts = [self.params["embed"], self.params["lm_head"],
               self.params["ln_out"], *self.params["layers"].values(),
               self.cache]
-        for g in self._graphs.values():
+        for g in [*self._graphs.values(), *self._prefill_graphs.values()]:
             ts.extend(g.buffers())
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1421,6 +1540,38 @@ class _DecodeGraph:
     def buffers(self) -> List[torch.Tensor]:
         return [t for t in vars(self).values() if isinstance(t, torch.Tensor)
                 ] + list(self.pen)
+
+
+class _PrefillGraph:
+    """One prefill-graph key's static device buffers, its captured chunk
+    (``graph``, None until captured; always None on the CPU), the output
+    tensors the capture returned (``out``: logits [1, Cb, V] and KV [L, 2,
+    1, Cb, H_kv, D], rewritten at each replay) and the kernel launches the
+    capture recorded (``captured``).
+
+    ``key`` = (route, prefix capacity, chunk bucket ``Cb``): route
+    ``"causal"`` is a chunk with no prefix (K3; capacity 0), ``"prefix"`` a
+    later chunk of a prompt over the bucketed prefix buffer of that many
+    rows (K2, whose valid length it reads from ``plen`` on the device)."""
+
+    def __init__(self, key, cfg, dtype: torch.dtype, device):
+        route, cap, Cb = key
+        self.key = key
+        self.tokens = torch.zeros((1, Cb), dtype=torch.int32, device=device)
+        self.plen = self.buf = None
+        if route == "prefix":
+            self.plen = torch.zeros((), dtype=torch.int32, device=device)
+            self.buf = torch.zeros(
+                (cfg.n_layers, 2, 1, cap, cfg.n_kv_heads, cfg.head_dim),
+                dtype=dtype, device=device)
+        self.out = None
+        self.graph = None
+        self.param_ptrs = None  # the weights the graph was captured with
+        self.captured: Dict[str, int] = {}
+
+    def buffers(self) -> List[torch.Tensor]:
+        return [t for t in (self.tokens, self.plen, self.buf,
+                            *(self.out or ())) if t is not None]
 
 
 _M32 = 0xFFFFFFFF

@@ -36,6 +36,7 @@ import re
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -45,11 +46,68 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def free_port() -> int:
+    """A port that was free a moment ago.  Another process may take it
+    before a child binds it (an outgoing connection's local port, another
+    test's listener): ``Listener`` starts the child again on fresh ports
+    when that happens."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+class Listener:
+    """A child process that listens on ports picked here.
+
+    ``argv_for(*ports)`` builds its command line from ``n_ports`` fresh
+    ports.  Its standard error is passed through to ours, and read for the
+    bind error: ``ready`` waits until ``wait(ports[0], deadline, proc)``
+    sees it serve, and if the child died because a port was taken between
+    the pick and its bind (EADDRINUSE), starts it again on fresh ports, up
+    to ``attempts`` times.  Any other failure raises."""
+
+    def __init__(self, label, argv_for, n_ports, env, procs, attempts=5):
+        self.label, self.argv_for, self.n_ports = label, argv_for, n_ports
+        self.env, self.procs, self.attempts = env, procs, attempts
+        self._start()
+
+    def _start(self) -> None:
+        self.ports = [free_port() for _ in range(self.n_ports)]
+        argv = self.argv_for(*self.ports)
+        print(f"[fleet] starting {self.label}: {' '.join(argv[2:])}",
+              flush=True)
+        self.proc = subprocess.Popen(argv, cwd=REPO, env=self.env,
+                                     stderr=subprocess.PIPE)
+        self.procs.append(self.proc)
+        self.port_taken = False
+        self._tee = threading.Thread(target=self._pass_stderr,
+                                     args=(self.proc.stderr,), daemon=True)
+        self._tee.start()
+
+    def _pass_stderr(self, pipe) -> None:
+        for line in iter(pipe.readline, b""):
+            sys.stderr.buffer.write(line)
+            sys.stderr.buffer.flush()
+            if b"address already in use" in line.lower():
+                self.port_taken = True
+
+    def ready(self, wait, timeout_s: float) -> int:
+        """Wait until the child serves; returns its first port."""
+        for attempt in range(self.attempts):
+            try:
+                wait(self.ports[0], time.time() + timeout_s, self.proc)
+                return self.ports[0]
+            except RuntimeError:
+                if self.proc.poll() is None:
+                    raise  # alive but not serving: not a taken port
+                self._tee.join(timeout=10)
+                if not self.port_taken or attempt == self.attempts - 1:
+                    raise
+                print(f"[fleet] {self.label}: a port was taken before it "
+                      f"bound; starting it again on fresh ports", flush=True)
+                self._start()
+        raise AssertionError("unreachable")
 
 
 def wait_http(port: int, path: str, deadline: float, proc=None) -> None:
@@ -106,26 +164,22 @@ def main() -> int:
         "ISTPU_SLO_TTFT_S": os.environ.get("ISTPU_SLO_TTFT_S", "60"),
         "ISTPU_SLO_TPOT_S": os.environ.get("ISTPU_SLO_TPOT_S", "10"),
     }
-    store_port, store_mport = free_port(), free_port()
-    pf_port, dec_port, router_port = free_port(), free_port(), free_port()
     procs = []
 
-    def spawn(label, argv):
-        print(f"[fleet] starting {label}: {' '.join(argv[2:])}",
-              flush=True)
-        p = subprocess.Popen(argv, cwd=REPO, env=env)
-        procs.append(p)
-        return p
+    def http_ready(path):
+        return lambda port, deadline, proc: wait_http(port, path, deadline,
+                                                      proc)
 
     try:
-        store = spawn("store", [
+        store = Listener("store", lambda port, mport: [
             sys.executable, "-m", "infinistore_tpu_torch.server",
-            "--service-port", str(store_port),
-            "--manage-port", str(store_mport),
+            "--service-port", str(port), "--manage-port", str(mport),
             "--prealloc-size", "1", "--minimal-allocate-size", "16",
             "--log-level", "warning", "--backend", "python",
-        ])
-        wait_tcp(store_port, time.time() + 30, store)
+        ], 2, env, procs)
+        # generous deadlines: on a loaded host (a test run in parallel
+        # with others) an interpreter takes many seconds to start
+        store_port = store.ready(wait_tcp, 120)
 
         worker_flags = [
             "--model", "tiny", "--block-tokens", "4", "--n-blocks", "128",
@@ -134,27 +188,23 @@ def main() -> int:
             "--store-service-port", str(store_port),
             "--store-connection", "tcp", "--log-level", "warning",
         ]
-        prefill = spawn("prefill worker", [
+        workers = {role: Listener(f"{role} worker", lambda port, role=role: [
             sys.executable, "-m", "infinistore_tpu_torch.serve",
-            "--role", "prefill", "--port", str(pf_port), *worker_flags,
-        ])
-        decode = spawn("decode worker", [
-            sys.executable, "-m", "infinistore_tpu_torch.serve",
-            "--role", "decode", "--port", str(dec_port), *worker_flags,
-        ])
+            "--role", role, "--port", str(port), *worker_flags,
+        ], 1, env, procs) for role in ("prefill", "decode")}
         # workers import torch + build engines before listening: generous
         # deadline, both booting in parallel
-        wait_http(pf_port, "/healthz", time.time() + 180, prefill)
-        wait_http(dec_port, "/healthz", time.time() + 180, decode)
+        pf_port = workers["prefill"].ready(http_ready("/healthz"), 180)
+        dec_port = workers["decode"].ready(http_ready("/healthz"), 180)
 
-        router = spawn("router", [
+        router = Listener("router", lambda port: [
             sys.executable, "-m", "infinistore_tpu_torch.serve",
-            "--role", "router", "--port", str(router_port),
+            "--role", "router", "--port", str(port),
             "--prefill-workers", f"127.0.0.1:{pf_port}",
             "--decode-workers", f"127.0.0.1:{dec_port}",
             "--log-level", "warning",
-        ])
-        wait_http(router_port, "/healthz", time.time() + 30, router)
+        ], 1, env, procs)
+        router_port = router.ready(http_ready("/healthz"), 120)
 
         url = f"http://127.0.0.1:{router_port}"
         completed = failed = 0

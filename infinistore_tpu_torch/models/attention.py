@@ -93,7 +93,7 @@ def causal_attention(
     v: torch.Tensor,
     q_offset: int = 0,
     prefix_pad: Optional[int] = None,
-    prefix_len: Optional[int] = None,
+    prefix_len=None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
@@ -101,9 +101,10 @@ def causal_attention(
 
     ``q_offset``: absolute position of q[0] minus that of k[0] (chunked
     prefill attends to the cached prefix plus itself).  Padded-prefix mode
-    (``prefix_pad`` and ``prefix_len`` both given, ``prefix_len`` a host int):
-    the first ``prefix_pad`` K/V rows are a prefix buffer of which only the
-    first ``prefix_len`` are valid.
+    (``prefix_pad`` and ``prefix_len`` both given, ``prefix_len`` a host int
+    or a 0-d int32 tensor on q's device, passed through as it is): the first
+    ``prefix_pad`` K/V rows are a prefix buffer of which only the first
+    ``prefix_len`` are valid.
 
     With a ``window`` or ``softcap``, and on the CPU: the plain
     ``causal_attention_xla``.  Otherwise on CUDA: K2

@@ -252,7 +252,7 @@ def prefill_forward(
     cfg: LlamaConfig,
     tokens: torch.Tensor,
     prefix_kv: Optional[torch.Tensor] = None,
-    prefix_len: Optional[int] = None,
+    prefix_len=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
@@ -262,9 +262,13 @@ def prefill_forward(
     ``q_offset = P`` on the card).  The returned KV covers only the new
     tokens.
 
-    ``prefix_len`` (host int): when ``prefix_kv`` is a padded buffer, only
-    its first ``prefix_len`` rows are valid; the token positions start there
-    and the slack is masked out of attention (K2 on the card).
+    ``prefix_len`` (a host int, or a 0-d int32 tensor on the tokens' device,
+    as the reference's traced int32): when ``prefix_kv`` is a padded buffer,
+    only its first ``prefix_len`` rows are valid; the token positions start
+    there and the slack is masked out of attention (K2 on the card).  A
+    tensor is never read on the host: positions are ``arange(S) +
+    prefix_len`` on the device, so one CUDA graph of this forward serves
+    every length of a buffer.
     """
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]

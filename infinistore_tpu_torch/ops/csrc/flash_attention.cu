@@ -10,9 +10,13 @@
 // _flash_prefix_kernel :176-240): k/v are [bucketed prefix | self] with
 // Sk = prefix_pad + Sq; rows [0, prefix_len) are the valid prefix (seen in
 // full), rows [prefix_len, prefix_pad) are bucket slack (masked), and self
-// row prefix_pad + j is seen by query i iff j <= i.  prefix_len is a plain
-// int: the engine holds it on the host.  prefix_pad need not be a multiple
-// of a tile, so one tile may hold prefix, slack and self rows at once.
+// row prefix_pad + j is seen by query i iff j <= i.  prefix_len is read from
+// device memory (an int32 the caller passes by pointer), as the Pallas
+// kernel takes it by scalar prefetch: the grid never depends on it, so one
+// launch captured into a CUDA graph serves every length of a bucket.  A
+// value outside [0, prefix_pad] acts as the nearer end, which is what the
+// plain version's mask gives it.  prefix_pad need not be a multiple of a
+// tile, so one tile may hold prefix, slack and self rows at once.
 //
 // Both return softmax(q k^T / sqrt(D)) v over the visible keys, [B, Sq, H, D],
 // GQA query head h reading KV head h / (H / H_kv).  Queries and keys keep the
@@ -106,10 +110,17 @@ struct Smem {
 };
 
 struct Args {
-  __nv_bfloat16* out;  // [B, Sq, H, D]
-  int Sq, Sk, H, Hkv, q_offset, prefix_pad, prefix_len;
-  float c;             // scale * log2(e)
+  __nv_bfloat16* out;      // [B, Sq, H, D]
+  const int* prefix_len_p;  // K2: the prefix length, in device memory
+  int Sq, Sk, H, Hkv, q_offset, prefix_pad;
+  int prefix_len;           // K2: *prefix_len_p, read by each block
+  float c;                  // scale * log2(e)
 };
+
+// K2's prefix length, read once per block and clamped to [0, prefix_pad].
+__device__ __forceinline__ int read_prefix_len(const int* p, int prefix_pad) {
+  return min(max(__ldg(p), 0), prefix_pad);
+}
 
 // The last key row query row ``q`` may see.
 template <bool kPrefix>
@@ -214,7 +225,10 @@ struct Loader {
 template <int D, bool kPrefix>
 __device__ __forceinline__ void flash(const CUtensorMap* tq,
                                       const CUtensorMap* tk,
-                                      const CUtensorMap* tv, const Args& a) {
+                                      const CUtensorMap* tv,
+                                      const Args& args) {
+  Args a = args;
+  if (kPrefix) a.prefix_len = read_prefix_len(a.prefix_len_p, a.prefix_pad);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -444,7 +458,7 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int D, bool kPrefix>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int Sq, int Sk, int H, int Hkv,
-                        int q_offset, int prefix_pad, int prefix_len,
+                        int q_offset, int prefix_pad, const int* prefix_len,
                         float scale, cudaStream_t stream) {
   if (Sk == 0)  // no key at all: every row is zero, as the f32 path gives
     return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
@@ -463,8 +477,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       !encode_bshd(&tk, k, B, Sk, Hkv, D, tc::kBK) ||
       !encode_bshd(&tv, v, B, Sk, Hkv, D, tc::kBK))
     return cudaErrorInvalidValue;
-  const tc::Args a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, Hkv,
-                   q_offset, prefix_pad, prefix_len,
+  const tc::Args a{static_cast<__nv_bfloat16*>(out), prefix_len, Sq, Sk,
+                   H, Hkv, q_offset, prefix_pad, 0,
                    scale * 1.4426950408889634f};
   const dim3 grid(H, B, (Sq + tc::kBQ - 1) / tc::kBQ);
   kernel<<<grid, tc::kThreads, smem, stream>>>(tq, tk, tv, a);
@@ -487,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     const T* __restrict__ v,  // [B, Sk, H_kv, D]
     T* __restrict__ out,      // [B, Sq, H, D]
     int Sq, int Sk, int H, int Hkv, int q_offset, int prefix_pad,
-    int prefix_len, float scale) {
+    const int* __restrict__ prefix_len_p, float scale) {
   constexpr int kVec = istpu::Vec16<T>::kN;
   constexpr int kKS = D + 1;        // padded row stride of q_s / k_s
   constexpr int kDC = D / 16;       // output columns per thread
@@ -506,6 +520,8 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
   const int ty = tid >> 4;  // owns query rows ty*kRows .. +kRows-1
   const int tx = tid & 15;  // owns columns tx, tx+16, ...
   const int q0 = qt * kBQ;
+  const int prefix_len =
+      prefix_pad < 0 ? 0 : tc::read_prefix_len(prefix_len_p, prefix_pad);
 
   for (int idx = tid; idx < kBQ * kRowVecs; idx += kThreads) {
     const int row = idx / kRowVecs;
@@ -645,7 +661,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
 template <typename T, int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
                        int B, int Sq, int Sk, int H, int Hkv, int q_offset,
-                       int prefix_pad, int prefix_len, float scale,
+                       int prefix_pad, const int* prefix_len, float scale,
                        cudaStream_t stream) {
   constexpr size_t smem =
       (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS) *
@@ -669,8 +685,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int Hkv, int q_offset,
-                   int prefix_pad, int prefix_len, float scale, int dtype,
-                   cudaStream_t s) {
+                   int prefix_pad, const int* prefix_len, float scale,
+                   int dtype, cudaStream_t s) {
   if (dtype == istpu::kF32)
     return launch_fma<float, D>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset,
                                 prefix_pad, prefix_len, scale, s);
@@ -691,18 +707,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // Launches K3 (prefix_pad < 0) or K2 (prefix_pad >= 0) on ``stream``: bf16
 // on the tensor cores at D = 64 and 128, f32 and bf16 at D = 32 on the FMA
-// path.  The caller checks shapes,
-// types, contiguity and 16-byte alignment; this returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a head size or type it was
-// not built for, or a tensor TMA cannot map).
+// path.  K2 reads its prefix length from the device int32 at
+// ``prefix_len`` when it runs (K3 ignores the pointer; it may be null).
+// The caller checks shapes, types, contiguity and 16-byte alignment; this
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// head size or type it was not built for, a tensor TMA cannot map, or K2
+// without a prefix length).
 extern "C" int istpu_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int H, int Hkv, int D,
                                      int q_offset, int prefix_pad,
-                                     int prefix_len, float scale, int dtype,
-                                     void* stream) {
+                                     const int* prefix_len, float scale,
+                                     int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % Hkv != 0) return cudaErrorInvalidValue;
+  if (prefix_pad >= 0 && prefix_len == nullptr) return cudaErrorInvalidValue;
   if (D == 32)
     return launch<32>(q, k, v, out, B, Sq, Sk, H, Hkv, q_offset, prefix_pad,
                       prefix_len, scale, dtype, s);

@@ -11,7 +11,9 @@ CUDA C++ in ``csrc/`` (built by ``build.py`` at first use):
   flash prefill with a ``q_offset``; replaces
   ``flash_causal_attention_pallas``.
 * K2 ``flash_prefix_attention_cuda`` (same source, prefix mask): flash
-  prefill over a bucketed prefix; replaces ``flash_prefix_attention_pallas``.
+  prefill over a bucketed prefix whose valid length the kernel reads from
+  device memory, so one CUDA graph serves every length; replaces
+  ``flash_prefix_attention_pallas``.
 * K4 ``paged_decode_attention_alllayers_cuda`` (``csrc/paged_decode.cu``):
   K1 over every layer in one launch, bitwise equal to L K1 launches; an
   instrument for launch overhead (``bench_gpu.py``), not a model path;
@@ -96,7 +98,7 @@ _SIGNATURES = {
     "istpu_paged_decode": ("paged_decode",
                            [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "istpu_flash_attention": ("flash_attention",
-                              [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+                              [_P] * 4 + [_I] * 8 + [_P, _F, _I, _P]),
 }
 _FNS: dict = {}
 
@@ -237,7 +239,7 @@ def causal_attention_xla(
     v: torch.Tensor,
     q_offset: int = 0,
     prefix_pad: Optional[int] = None,
-    prefix_len: Optional[int] = None,
+    prefix_len=None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
@@ -249,7 +251,9 @@ def causal_attention_xla(
     Padded-prefix mode (``prefix_pad`` and ``prefix_len`` given): the first
     ``prefix_pad`` K/V rows are a prefix buffer of which the first
     ``prefix_len`` are valid; the remaining rows are the queries' own KV,
-    causal by chunk-local index.  ``window`` (sliding window, HF
+    causal by chunk-local index.  ``prefix_len`` is a host int or a 0-d
+    int32 tensor on q's device; the mask is built from it on the device,
+    with no host read.  ``window`` (sliding window, HF
     convention) and ``softcap`` (Gemma-2 logit soft-capping) are masks the
     kernels do not carry.
     """
@@ -478,8 +482,11 @@ def paged_decode_attention_alllayers_cuda(
                          "paged_decode_alllayers")
 
 
-def _flash(q, k, v, q_offset: int, prefix_pad: int, prefix_len: int,
-           counter: str) -> torch.Tensor:
+def _flash(q, k, v, q_offset: int, prefix_pad: int,
+           prefix_len: Optional[torch.Tensor], counter: str) -> torch.Tensor:
+    """Check and launch ``csrc/flash_attention.cu``: K3 with
+    ``prefix_pad`` -1, or K2 reading its length from ``prefix_len`` (a
+    device int32) when it runs."""
     _check_attention_dtype(q)
     B, Sq, H, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
@@ -498,7 +505,8 @@ def _flash(q, k, v, q_offset: int, prefix_pad: int, prefix_len: int,
         "istpu_flash_attention", q.device,
         torch.cuda.current_stream(q.device).cuda_stream,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, Hkv, D, q_offset, prefix_pad, prefix_len,
+        B, Sq, Sk, H, Hkv, D, q_offset, prefix_pad,
+        None if prefix_len is None else prefix_len.data_ptr(),
         1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
     )
     _count(counter)
@@ -518,28 +526,51 @@ def flash_causal_attention_cuda(
                          f"got {q.device}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    return _flash(q, k, v, int(q_offset), -1, 0, "flash_causal")
+    return _flash(q, k, v, int(q_offset), -1, None, "flash_causal")
 
 
 def flash_prefix_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_pad: int,
-    prefix_len: int,
+    prefix_len,
 ) -> torch.Tensor:
     """K2 (``csrc/flash_attention.cu``, prefix mask): q: [B, Sq, H, D];
     k/v: [B, prefix_pad + Sq, H_kv, D] whose rows [0, prefix_len) are the
     valid prefix, [prefix_len, prefix_pad) bucket slack, and the rest the
-    queries' own KV.  ``prefix_len`` is a host int.  Runs the padded-prefix
-    mode of ``causal_attention_xla`` for CPU tensors."""
+    queries' own KV.  Runs the padded-prefix mode of
+    ``causal_attention_xla`` for CPU tensors.
+
+    ``prefix_len``, as the Pallas kernel's scalar prefetch: a host int,
+    checked here and written into a device int32 of its own before the
+    launch, or a 0-d int32 tensor on q's device, which the kernel reads when
+    it runs (no host read, no sync: a launch captured into a CUDA graph
+    reads whatever length the tensor holds at each replay; a value outside
+    [0, prefix_pad] acts as the nearer end).  Both launch the same
+    kernel."""
     if q.device.type == "cpu":
         return causal_attention_xla(q, k, v, prefix_pad=prefix_pad,
                                     prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (or its plain version on the CPU), "
                          f"got {q.device}")
-    prefix_pad, prefix_len = int(prefix_pad), int(prefix_len)
-    if not 0 <= prefix_len <= prefix_pad:
-        raise ValueError(f"need 0 <= prefix_len <= prefix_pad, got "
-                         f"{prefix_len}, {prefix_pad}")
+    prefix_pad = int(prefix_pad)
+    if prefix_pad < 0:
+        raise ValueError(f"prefix_pad must be >= 0, got {prefix_pad}")
+    if isinstance(prefix_len, torch.Tensor):
+        if prefix_len.dim() != 0 or prefix_len.dtype != torch.int32:
+            raise TypeError(f"a device prefix_len must be a 0-d int32 "
+                            f"tensor, got {prefix_len.dtype} "
+                            f"{tuple(prefix_len.shape)}")
+        if prefix_len.device != q.device:
+            raise ValueError(f"prefix_len is on {prefix_len.device}, "
+                             f"expected {q.device}")
+    else:
+        prefix_len = int(prefix_len)
+        if not 0 <= prefix_len <= prefix_pad:
+            raise ValueError(f"need 0 <= prefix_len <= prefix_pad, got "
+                             f"{prefix_len}, {prefix_pad}")
+        # a fill kernel on the current stream: no host-to-device copy
+        prefix_len = torch.full((), prefix_len, dtype=torch.int32,
+                                device=q.device)
     if k.shape[1] != prefix_pad + q.shape[1]:
         raise ValueError(f"k/v must hold prefix_pad + Sq = "
                          f"{prefix_pad + q.shape[1]} rows, got {k.shape[1]}")

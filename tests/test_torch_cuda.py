@@ -639,3 +639,116 @@ def test_window_and_softcap_configs_run_on_the_card(dev, family):
     assert got["cuda"][1].graph_replays > 0
     if family == "mistral_window":  # window-dead pages went back
         assert got["cuda"][2].reclaimed_pages == got["cpu"][2].reclaimed_pages
+
+
+# ---- K2's device prefix_len and the engine's CUDA-graph prefill ----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,n_rep", [(32, 2), (128, 4)])
+def test_k2_graph_replay_across_lengths_equals_host_int(dev, dtype, D, n_rep):
+    """One K2 launch captured with a device ``prefix_len``, the length
+    changed in place between replays: each replay is ``torch.equal`` to
+    the host-int launch at that length and agrees with the plain
+    version."""
+    pad, Sq = 1024, 512
+    q, k, v = _flash_inputs(3, 1, Sq, pad + Sq, n_rep, D, dtype, dev)
+    plen = torch.zeros((), dtype=torch.int32, device=dev)
+    ca.flash_prefix_attention_cuda(q, k, v, pad, plen)  # first call: set-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ca.flash_prefix_attention_cuda(q, k, v, pad, plen)
+    for n in (0, 1, 127, 128, 129, pad):
+        plen.fill_(n)
+        graph.replay()
+        want = ca.flash_prefix_attention_cuda(q, k, v, pad, n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), n
+        _close(out, ca.causal_attention_xla(q, k, v, prefix_pad=pad,
+                                            prefix_len=plen), dtype)
+
+
+def test_k2_device_prefix_len_is_checked(dev):
+    q, k, v = _flash_inputs(0, 1, 8, 24, 2, 64, torch.bfloat16, dev)
+    with pytest.raises(TypeError):
+        ca.flash_prefix_attention_cuda(
+            q, k, v, 16, torch.zeros((), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        ca.flash_prefix_attention_cuda(
+            q, k, v, 16, torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ca.flash_prefix_attention_cuda(q, k, v, 16, 17)
+
+
+def test_prefill_graph_replay_equals_eager_body(dev):
+    """Two engines on the same weights prefill the same prompts (1 to 4
+    chunks of 64 with ragged tails, two rounds of fresh tokens), one
+    through the prefill graphs and one through the same chunk body run
+    eagerly: every chunk's logits and KV are ``torch.equal``, for every key
+    (K3 first chunks, K2 over 64-, 128- and 256-row buffers), and so are
+    the pages and the first-token logits."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import read_pages
+
+    params, cfg, pc = _engine_parts(dev, n_blocks=64)
+    lengths = [20, 64 + 37, 128 + 60, 3 * 64 + 5]
+    runs = {}
+    for eager in (True, False):
+        eng = InferenceEngine(params, cfg, pc, prefill_chunk=64, device=dev)
+        chunks, firsts, pages = [], [], []
+        body = eng._prefill_chunk
+
+        def spy(pp, chunk, e, body=body, chunks=chunks):
+            logits, kv = body(pp, chunk, e)
+            chunks.append((logits.clone(), kv.clone()))
+            return logits, kv
+
+        eng._prefill_chunk = spy
+        for rnd in range(2):
+            for i, n in enumerate(lengths):
+                p = np.random.default_rng(10 * rnd + i).integers(
+                    0, cfg.vocab_size, n).tolist()
+                pp = eng.prefill_start(p)
+                st = None
+                while st is None:
+                    st = eng.prefill_step(pp, eager=eager)
+                firsts.append(st.last_logits)
+                pages.append(read_pages(eng.cache, torch.tensor(
+                    st.block_ids, device=dev)))
+                eng.release(st)
+        torch.cuda.synchronize()
+        runs[eager] = (eng, chunks, firsts, pages)
+    eng, chunks, firsts, pages = runs[False]
+    assert set(eng._prefill_graphs) == {
+        ("causal", 0, 32), ("causal", 0, 64), ("prefix", 64, 64),
+        ("prefix", 128, 64), ("prefix", 256, 16)}
+    assert eng.prefill_captures == 5 and eng.prefill_replays == 20 - 5
+    assert runs[True][0].prefill_captures == 0
+    assert runs[True][0].prefill_replays == 0
+    assert eng.prefill_graph_launches["flash_causal"] > 0
+    assert eng.prefill_graph_launches["flash_prefix"] > 0
+    for name, a, b in (("chunks", runs[True][1], chunks),
+                       ("first-token logits", runs[True][2], firsts),
+                       ("pages", runs[True][3], pages)):
+        assert len(a) == len(b)
+        for i, (x, y) in enumerate(zip(a, b)):
+            xs, ys = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+            assert all(torch.equal(s, t) for s, t in zip(xs, ys)), (name, i)
+
+
+def test_prefill_graph_counts_kernels_per_replay(dev):
+    """A replayed prefill graph adds the K3/K2 launches its capture
+    recorded (one per layer); the capture itself launches nothing."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+
+    params, cfg, pc = _engine_parts(dev)
+    eng = InferenceEngine(params, cfg, pc, prefill_chunk=64, device=dev)
+    rng = np.random.default_rng(0)
+    eng.release(eng.prefill(rng.integers(0, 500, 100).tolist()))  # captures
+    ca.reset_launches()
+    eng.release(eng.prefill(rng.integers(0, 500, 100).tolist()))  # replays
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES["flash_causal"] == cfg.n_layers
+    assert ca.LAUNCHES["flash_prefix"] == cfg.n_layers
+    assert ca.CAPTURED == dict.fromkeys(ca.KERNELS, 0)
+    assert eng.prefill_replays == 2

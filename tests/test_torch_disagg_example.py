@@ -80,3 +80,36 @@ def test_fleet_processes_smoke_25_requests_zero_5xx():
     adopted = 25 * ((16 - 1) // 4) * 4
     assert ("workers=['prefill', 'decode'], decode worker adopted "
             f"{adopted} prompt tokens from the store") in out, out[-3000:]
+
+
+def test_fleet_child_starts_again_on_a_port_taken_before_it_bound(
+        monkeypatch):
+    """The four-process fleet picks each child's port, closes it and hands
+    it over; under a loaded test run another process may take the port in
+    between, and the child dies with EADDRINUSE.  The example then starts
+    that child again on a fresh port."""
+    import socket
+
+    from infinistore_tpu_torch.examples import fleet_processes as fp
+
+    taken = socket.socket()  # bound, not listening: as a client's port
+    taken.bind(("127.0.0.1", 0))
+    picks = iter([taken.getsockname()[1]])
+    real = fp.free_port
+    monkeypatch.setattr(fp, "free_port", lambda: next(picks, None) or real())
+    procs = []
+    try:
+        child = fp.Listener("listener", lambda port: [
+            sys.executable, "-c",
+            "import socket, sys, time; s = socket.socket(); "
+            "s.bind(('127.0.0.1', int(sys.argv[1]))); s.listen(); "
+            "time.sleep(60)", str(port)], 1, dict(os.environ), procs)
+        port = child.ready(fp.wait_tcp, 60)
+        assert port != taken.getsockname()[1]
+        assert len(procs) == 2 and procs[0].returncode not in (None, 0)
+        assert procs[1].poll() is None
+    finally:
+        taken.close()
+        for p in procs:
+            p.kill()
+            p.wait()

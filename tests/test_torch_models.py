@@ -71,6 +71,39 @@ def _np(x):
         else np.asarray(x, np.float32)
 
 
+def test_rope_trig_halves_agree_across_intra_op_threads():
+    """The RoPE case's angles (2 rows x 40 positions x 32 frequencies =
+    2560 values) through torch's float cos/sin (MKL VML, ``vmsCos`` /
+    ``vmsSin`` in high-accuracy mode, ``ATen/cpu/vml.h``), which run in
+    chunks over the intra-op threads: at two threads batch row 1, the row
+    that drifted by 4.34e-4 in the intermittent failure of the RoPE case
+    after the reference's JAX servers ran in the same process, is the
+    second chunk, computed off the calling thread (ROADMAP.md queue 3).
+    Placed first, so it is the first torch math of the module: each row
+    is held against float64 and against the one-thread result, and a
+    failure names the row and the thread that computed it."""
+    pos = torch.from_numpy(np.stack([np.arange(40), np.arange(40) + 50])
+                           .astype(np.int32))
+    angles = pos[..., None].float() * tatt.rope_freqs(64, 500000.0, None)
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(2)
+        two = {"cos": torch.cos(angles), "sin": torch.sin(angles)}
+        torch.set_num_threads(1)
+        one = {"cos": torch.cos(angles), "sin": torch.sin(angles)}
+    finally:
+        torch.set_num_threads(threads)
+    a64 = angles.double().numpy()
+    for name, f in (("cos", np.cos), ("sin", np.sin)):
+        for row, who in ((0, "the calling thread"), (1, "the OpenMP worker")):
+            err = float(np.abs(two[name][row].double().numpy()
+                               - f(a64[row])).max())
+            assert err <= 1e-6 and torch.equal(two[name][row],
+                                               one[name][row]), (
+                f"{name} of batch row {row}, computed by {who} at 2 "
+                f"threads, is off float64 by {err}")
+
+
 @pytest.mark.parametrize("scaling", [None, (8.0, 1.0, 4.0, 64)])
 def test_apply_rope_equals_reference(scaling):
     rng = np.random.default_rng(1)

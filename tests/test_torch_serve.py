@@ -360,6 +360,91 @@ def test_models_and_metrics(server):
         assert family in text, family
 
 
+def test_metrics_ttft_split(servers):
+    """/metrics separates queue-wait from prefill time, so a high TTFT is
+    attributable; after a completion both gauges exist with sane values
+    (the reference's case, its greedy answer held against the JAX
+    server's)."""
+    server = servers[1]
+    _greedy_both(servers, {"prompt": PROMPT, "max_tokens": 4,
+                           "temperature": 0})
+    status, data = _get(server.port, "/metrics")
+    text = data.decode()
+    assert status == 200
+    assert "istpu_serve_queue_wait_p50_ms" in text
+    assert "istpu_serve_prefill_p50_ms" in text
+    vals = {
+        line.split()[0]: float(line.split()[1])
+        for line in text.splitlines()
+        if line and not line.startswith("#")
+    }
+    assert vals["istpu_serve_prefill_p50_ms"] > 0.0
+    assert vals["istpu_serve_queue_wait_p50_ms"] >= 0.0
+    assert server.sched.latency_metrics["window"] >= 1
+
+
+def test_serving_with_store_attached_prefix_reuse(servers):
+    """The serving front door composes with the store tier: a port engine
+    with a store connection (relaxed durability, the serve default) and
+    one-page prefill chunks (the compiled prefill body's K3 chunk, then K2
+    over 4- and 8-row prefix buffers) answers the greedy completion the
+    JAX server answers; after the durability barrier a SECOND engine on
+    the same store reuses the prompt's prefix pages (the reference's
+    cross-host prefix cache)."""
+    from test_torch_frontdoor import port_store
+
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
+
+    def mk_engine(c):
+        return InferenceEngine(
+            TPARAMS, TCFG,
+            PagedCacheConfig(n_layers=TCFG.n_layers,
+                             n_kv_heads=TCFG.n_kv_heads,
+                             head_dim=TCFG.head_dim, n_blocks=64,
+                             block_tokens=4, dtype=torch.float32),
+            conn=c, model_id="serve-store", prefill_chunk=4,
+            store_durability="relaxed", device="cpu")
+
+    status, ref = _post(servers[0].port, {"prompt": PROMPT, "max_tokens": 6,
+                                          "temperature": 0})
+    assert status == 200, ref
+    with port_store() as (service, _manage):
+        conns = []
+        try:
+            for _ in range(2):
+                c = lib.InfinityConnection(ClientConfig(
+                    host_addr="127.0.0.1", service_port=service,
+                    connection_type=TYPE_SHM))
+                c.connect()
+                conns.append(c)
+            eng = mk_engine(conns[0])
+            srv = ServingServer(eng, port=0, max_batch=2,
+                                model_id="serve-store")
+            srv.start()
+            try:
+                status, body = _post(srv.port, {
+                    "prompt": PROMPT, "max_tokens": 6, "temperature": 0})
+                assert status == 200, body
+                toks = body["choices"][0]["token_ids"]
+                assert toks == ref["choices"][0]["token_ids"]
+                assert toks == dense_greedy(PROMPT, 6)
+                eng.store_flush()  # the barrier before the "new host"
+            finally:
+                srv.close()
+            assert {k[0] for k in eng._prefill_graphs} == {"causal",
+                                                           "prefix"}
+            eng2 = mk_engine(conns[1])
+            st = eng2.prefill(PROMPT)
+            assert st.reused_chunks == len(PROMPT) // 4
+            eng2.release(st)
+            for e in (eng, eng2):
+                e.transfer.close()
+        finally:
+            for c in conns:
+                c.close()
+
+
 def test_disconnect_mid_stream_frees_pages(servers):
     server = servers[1]
     free_before = server.engine.free_pages
