@@ -80,6 +80,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -98,7 +99,26 @@ BF16_FLOPS_PER_S = 989e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # atol = rtol, per dtype
 REPO_SOURCE = "infinistore_tpu_torch/ops/csrc/"
 TPU_SOURCE = "infinistore_tpu/ops/pallas_attention.py:"
-MODEL_PATH_KERNELS = ("paged_decode", "flash_causal", "flash_prefix")
+MODEL_PATH_KERNELS = ("paged_decode", "flash_causal", "flash_prefix",
+                      "flash_prefix_device_len")
+
+
+def _held(engine) -> str:
+    """The engine's held bytes (weights, cache, graph buffers), the prefill
+    graphs' share and the device memory the allocator has reserved (the
+    graph pool's included), in MiB."""
+    import torch
+
+    pre = {}
+    for g in engine._prefill_graphs.values():
+        for t in g.buffers():
+            st = t.untyped_storage()
+            pre[st.data_ptr()] = st.nbytes()
+    mib = 2 ** 20
+    return (f"held_bytes {engine.held_bytes() / mib:.1f} MiB, prefill graph "
+            f"buffers {sum(pre.values()) / mib:.1f} MiB over "
+            f"{len(engine._prefill_graphs)} keys; device memory reserved "
+            f"{torch.cuda.memory_reserved() / mib:.1f} MiB")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -534,20 +554,22 @@ def phase_model(torch, ca, bench_gpu, dev, card: str, params, cfg, pc):
               f"{len(r.output)} tokens, wanted {n}")
     check(all(launches[k] > 0 for k in MODEL_PATH_KERNELS),
           f"a kernel was not launched on the serving path: {launches}")
-    print(f"[model] decode graphs: {engine.graph_replays} replays of "
-          f"{len(engine._graphs)} graphs, {engine.graph_captures} captures in "
-          f"{engine.graph_capture_s:.3f} s")
-    check(engine.graph_replays > 0,
+    caps, caps_s = engine.graph_captures, engine.graph_capture_s
+    replays = engine.graph_replays
+    print(f"[model] decode graphs: {replays['decode']} replays of "
+          f"{len(engine._graphs)} graphs, {caps['decode']} captures in "
+          f"{caps_s['decode']:.3f} s")
+    check(replays["decode"] > 0,
           "the serving path decoded without replaying a CUDA graph")
-    print(f"[model] prefill graphs: {engine.prefill_replays} replays of "
-          f"{len(engine._prefill_graphs)} keys, {engine.prefill_captures} "
-          f"captures in {engine.prefill_capture_s:.3f} s; launches made by "
-          f"the replays {json.dumps(engine.prefill_graph_launches)}; keys "
-          f"(route, prefix capacity, chunk bucket) "
+    pl = engine.graph_launches("prefill")
+    print(f"[model] prefill graphs: {replays['prefill']} replays of "
+          f"{len(engine._prefill_graphs)} keys, {caps['prefill']} captures "
+          f"in {caps_s['prefill']:.3f} s; launches made by the replays "
+          f"{json.dumps(pl)}; keys (route, prefix capacity, chunk bucket) "
           f"{sorted(engine._prefill_graphs)}")
-    check(engine.prefill_graph_launches.get("flash_causal", 0) > 0
-          and engine.prefill_graph_launches.get("flash_prefix", 0) > 0,
+    check(pl.get("flash_causal", 0) > 0 and pl.get("flash_prefix", 0) > 0,
           "the serving path replayed no prefill graph holding K3 and K2")
+    print(f"[model] held: {_held(engine)}")
     reused = finished[ids[3]].state.reused_chunks
     check(reused == 512 // pc.block_tokens,
           f"the shared-prefix request reused {reused} chunks, wanted 32")
@@ -614,96 +636,134 @@ def _device_time_by_kind(torch, prof):
 def phase_profile(torch, bench_gpu, engine, prompts, card: str,
                   steps: int = 16) -> dict:
     """Where a cold prefill's and a decode step's time go.  Fresh
-    1500-token prompts prefilled through the prefill graphs and through the
-    eager chunk body, bare (twice each, in turns) and under
-    ``torch.profiler`` (device time by kind, kernels per chunk), then each
-    prefill key's replay against its eager body and the prefix copy's
-    device time; then a ``steps``-token ``decode_batch`` at B=8
+    1500- and 1100-token prompts prefilled through the prefill graphs,
+    through the eager chunk body and whole in one eager forward (the serve
+    default), bare (twice each, in turns) and under ``torch.profiler``
+    (device time by kind, kernels per chunk), with the memory each holds;
+    then each prefill key's replay against its eager body and the prefix
+    copy's device time; then a ``steps``-token ``decode_batch`` at B=8
     through the graphs and through the eager step body, each timed bare and
     under the profiler (busy share against the bare wall time).  Returns,
     per run ("graph", "eager"), ms/step bare and busy (0 when the profiler
     saw no device time), kernels/step and host us per replay."""
     from torch.profiler import ProfilerActivity, profile
 
-    # a cold prefill of a fresh 1500-token prompt: 512-token chunks, the
-    # first through K3, the others through K2 (keys the serving run has
-    # captured), through the prefill graphs and through the same chunk
-    # body run eagerly, each bare and under the profiler
-    def fresh(seed):
-        return torch.randint(0, engine.cfg.vocab_size, (1500,),
-                             generator=torch.Generator().manual_seed(seed)
-                             ).tolist()
+    # the device's kernels only: every number read here is a kernel's, and
+    # the host ops' events would double the trace's post-processing
+    kernels_only = [ProfilerActivity.CUDA]
 
-    def cold(seed, eager):
-        pp = engine.prefill_start(fresh(seed))
+    from infinistore_tpu_torch.engine import InferenceEngine
+
+    # cold prefills of fresh 1500- and 1100-token prompts three ways:
+    # "graph", 512-token chunks through the prefill graphs (the first
+    # chunk K3, the others K2); "eager", the same chunk body run eagerly;
+    # "whole", the serve CLI's default (``prefill_chunk`` None), the whole
+    # prompt in one eager forward on an engine of its own.  Each is warmed
+    # once (captures, cuBLAS), timed bare twice in turns, then once under
+    # the profiler, with the allocator's peak over its resident bytes
+    whole = InferenceEngine(engine.params, engine.cfg, dataclasses.replace(
+        engine.pc, n_blocks=256), device=engine.device)
+
+    def cold(n, name, seed):
+        eng = whole if name == "whole" else engine
+        pp = eng.prefill_start(torch.randint(
+            0, eng.cfg.vocab_size, (n,),
+            generator=torch.Generator().manual_seed(seed)).tolist())
         st = None
         while st is None:
-            st = engine.prefill_step(pp, eager=eager)
-        engine.release(st)
+            st = eng.prefill_step(pp, eager=name == "eager")
+        eng.release(st)
 
-    chunks = -(-1500 // engine.prefill_chunk)
+    t_phase = time.perf_counter()
+    modes = {1500: ("graph", "eager", "whole"), 1100: ("graph", "whole")}
+    seeds = iter(range(100, 1000))
     pre: dict = {}
-    for name, seed in (("graph", 7), ("eager", 8), ("graph", 9),
-                       ("eager", 10)):
-        replays0, host0 = engine.prefill_replays, engine.prefill_replay_s
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cold(seed, name == "eager")
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        replays = engine.prefill_replays - replays0
-        r = pre.setdefault(name, {"wall_ms": []})
-        r["wall_ms"].append(wall)
-        r["replays"] = replays
-        r["host_us_per_replay"] = (1e6 * (engine.prefill_replay_s - host0)
-                                   / replays) if replays else None
-    for name, seed in (("graph", 11), ("eager", 12)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            cold(seed, name == "eager")
+    for n, names in modes.items():
+        for name in names:
+            cold(n, name, next(seeds))  # warm-up: not timed
+        for name in names * 2:
+            replays0 = engine.graph_replays["prefill"]
+            host0 = engine.graph_replay_s["prefill"]
             torch.cuda.synchronize()
-        groups, top, n_kernels = _device_time_by_kind(torch, prof)
-        busy = sum(groups.values())
-        r = pre[name]
-        r.update(busy_ms=busy, kernels=n_kernels)
-        walls = ", ".join(f"{w:.3f}" for w in r["wall_ms"])
-        if busy:
-            by_kind = {k: round(v, 4) for k, v in sorted(
-                groups.items(), key=lambda kv: -kv[1])}
-            print(f"[profile] cold prefill of 1500 tokens ({chunks} chunks of "
-                  f"{engine.prefill_chunk}) {name}: wall {walls} ms bare; "
-                  f"device time {busy:.3f} ms in {n_kernels} kernels "
-                  f"({n_kernels / chunks:.0f} per chunk); ms by kind "
-                  f"{json.dumps(by_kind)}")
-            for ms, n, kname in sorted(top, reverse=True)[:6]:
-                print(f"[profile]   {ms:8.4f} ms  {n:5d}  {kname}")
-        else:
-            print(f"[profile] cold prefill of 1500 tokens {name}: wall "
-                  f"{walls} ms bare; the profiler saw no device time: "
-                  f"not measured")
-    g, e = pre["graph"], pre["eager"]
-    check(g["replays"] == chunks and e["replays"] == 0,
-          f"the cold prefill replayed {g['replays']} prefill graphs "
-          f"(wanted {chunks}), eagerly {e['replays']}")
-    print(f"[profile] cold prefill of 1500 tokens: graphs "
-          f"{min(g['wall_ms']):.3f} ms vs eager body {min(e['wall_ms']):.3f} "
-          f"ms wall (best of 2, "
-          f"{min(e['wall_ms']) / min(g['wall_ms']):.2f}x); host "
-          f"{g['host_us_per_replay']:.1f} us per replay; "
-          f"{engine.prefill_captures} prefill captures in "
-          f"{engine.prefill_capture_s:.3f} s; {len(engine._prefill_graphs)} "
-          f"keys {sorted(engine._prefill_graphs)} ({card})")
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cold(n, name, next(seeds))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            replays = engine.graph_replays["prefill"] - replays0
+            r = pre.setdefault((n, name), {"wall_ms": []})
+            r["wall_ms"].append(wall)
+            r["replays"] = replays
+            r["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            r["host_us_per_replay"] = (
+                1e6 * (engine.graph_replay_s["prefill"] - host0) / replays
+                if replays else None)
+        for name in names:
+            with profile(activities=kernels_only) as prof:
+                cold(n, name, next(seeds))
+                torch.cuda.synchronize()
+            groups, top, n_kernels = _device_time_by_kind(torch, prof)
+            busy = sum(groups.values())
+            r = pre[(n, name)]
+            r.update(busy_ms=busy, kernels=n_kernels)
+            chunks = 1 if name == "whole" else -(-n // engine.prefill_chunk)
+            how = ("whole prompt, one eager forward" if name == "whole" else
+                   f"{chunks} chunks of {engine.prefill_chunk}")
+            walls = ", ".join(f"{w:.3f}" for w in r["wall_ms"])
+            if busy:
+                by_kind = {k: round(v, 4) for k, v in sorted(
+                    groups.items(), key=lambda kv: -kv[1])}
+                print(f"[profile] cold prefill of {n} tokens ({how}) {name}: "
+                      f"wall {walls} ms bare; device time {busy:.3f} ms in "
+                      f"{n_kernels} kernels ({n_kernels / chunks:.0f} per "
+                      f"chunk); allocator peak +{r['peak_mib']:.1f} MiB; "
+                      f"ms by kind {json.dumps(by_kind)}")
+                for ms, k, kname in sorted(top, reverse=True)[:6]:
+                    print(f"[profile]   {ms:8.4f} ms  {k:5d}  {kname}")
+            else:
+                print(f"[profile] cold prefill of {n} tokens ({how}) {name}: "
+                      f"wall {walls} ms bare; the profiler saw no device "
+                      f"time: not measured")
+    for n, names in modes.items():
+        chunks = -(-n // engine.prefill_chunk)
+        got = {name: pre[(n, name)] for name in names}
+        replayed = {m: r["replays"] for m, r in got.items()}
+        check(replayed == {m: chunks if m == "graph" else 0 for m in names},
+              f"the cold prefill of {n} tokens replayed {replayed} prefill "
+              f"graphs, wanted {chunks} through the graphs and 0 otherwise")
+        best = {m: min(r["wall_ms"]) for m, r in got.items()}
+        print(f"[profile] cold prefill of {n} tokens, best of 2 bare: "
+              + ", ".join(f"{m} {ms:.3f} ms" for m, ms in best.items())
+              + f"; graphs {best['whole'] / best['graph']:.2f}x against "
+              f"the whole prompt eagerly; host "
+              f"{got['graph']['host_us_per_replay']:.1f} us per replay "
+              f"({card})")
+    print(f"[profile] {engine.graph_captures['prefill']} prefill captures "
+          f"in {engine.graph_capture_s['prefill']:.3f} s; "
+          f"{len(engine._prefill_graphs)} keys "
+          f"{sorted(engine._prefill_graphs)}")
+    print(f"[profile] held, 512-token chunks: {_held(engine)}")
+    print(f"[profile] held, whole prompt (serve default): {_held(whole)}")
+    del whole
+    print(f"[profile] cold prefills: {time.perf_counter() - t_phase:.1f} s "
+          f"of the smoke's wall time")
 
     # each key's graph against its eager body at full width: one replay
-    # and one eager run over the key's static buffers as the last chunk
-    # left them, logits and KV torch.equal
+    # and one eager run over the key's static buffers, logits and KV
+    # torch.equal.  The keys share the logits row and the length: each
+    # check sets them in range for its key (row 0, the whole buffer valid)
     for key, pg in sorted(engine._prefill_graphs.items()):
         if pg.graph is None:  # a key only the eager body has run
             continue
         with engine._on_engine_stream():
+            pg.last.fill_(0)
+            if pg.plen is not None:
+                pg.plen.fill_(key[1])
             pg.graph.replay()
-            replayed = [t.clone() for t in pg.out]
-            body = engine._prefill_body(pg)
+            replayed = [pg.logits.clone(), pg.kv.clone()]
+            engine._prefill_body(pg)
+            body = [pg.logits, pg.kv]
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(replayed, body))
         print(f"[profile] prefill graph {key}: replay torch.equal to the "
@@ -736,17 +796,19 @@ def phase_profile(torch, bench_gpu, engine, prompts, card: str,
         for st, (n, logits) in zip(states, start):
             del st.tokens[n:]
             st.last_logits = logits
-        replays0, host0 = engine.graph_replays, engine.graph_replay_s
+        replays0 = engine.graph_replays["decode"]
+        host0 = engine.graph_replay_s["decode"]
         t0 = time.perf_counter()
         toks = engine._decode_batch(states, steps, eager=name == "eager")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        replays = engine.graph_replays - replays0
+        replays = engine.graph_replays["decode"] - replays0
+        host_s = engine.graph_replay_s["decode"] - host0
         runs[name] = {
             "wall_ms": wall_ms / steps, "tokens": toks,
             "logits": torch.stack([st.last_logits for st in states]),
-            "host_us_per_replay": (1e6 * (engine.graph_replay_s - host0)
-                                   / replays) if replays else None,
+            "host_us_per_replay": (1e6 * host_s / replays) if replays
+            else None,
         }
     same_toks = runs["eager"]["tokens"] == runs["graph"]["tokens"]
     same_logits = torch.equal(runs["eager"]["logits"],
@@ -756,8 +818,7 @@ def phase_profile(torch, bench_gpu, engine, prompts, card: str,
     check(same_toks and same_logits,
           "the graph-replayed decode differs from the eager step body")
     for name, r in runs.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=kernels_only) as prof:
             engine._decode_batch(states, steps, eager=name == "eager")
             torch.cuda.synchronize()
         groups, top, n_kernels = _device_time_by_kind(torch, prof)
@@ -779,13 +840,13 @@ def phase_profile(torch, bench_gpu, engine, prompts, card: str,
     for st in states:
         engine.release(st)
     g = runs["graph"]
+    n_cap = engine.graph_captures["decode"]
+    cap_s = engine.graph_capture_s["decode"]
     print(f"[profile] decode B=8 graph {g['wall_ms']:.3f} ms/step vs eager "
           f"body {runs['eager']['wall_ms']:.3f} ms/step "
           f"({runs['eager']['wall_ms'] / g['wall_ms']:.2f}x); host "
           f"{g['host_us_per_replay']:.2f} us per replay; "
-          f"{engine.graph_captures} captures in "
-          f"{engine.graph_capture_s:.3f} s "
-          f"({1e3 * engine.graph_capture_s / engine.graph_captures:.1f} ms "
+          f"{n_cap} captures in {cap_s:.3f} s ({1e3 * cap_s / n_cap:.1f} ms "
           f"each); {len(engine._graphs)} graphs ({card})")
     return runs
 
@@ -894,7 +955,7 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
 
     try:
         ca.reset_launches()
-        replays0 = engine.graph_replays
+        replays0 = engine.graph_replays["decode"]
         t0 = time.perf_counter()
         p = prompt(12)
         greedy = complete({"prompt": p, "max_tokens": 16, "temperature": 0})
@@ -944,7 +1005,7 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
         check(status == 200 and eng["enabled"] and eng["summary"]["steps"] > 0,
               f"serve: /debug/engine: {eng}")
         launches = dict(ca.LAUNCHES)
-        replays = engine.graph_replays - replays0
+        replays = engine.graph_replays["decode"] - replays0
         print(f"[serve] 7 requests in {wall:.3f} s; /debug/engine: "
               f"{eng['summary']['steps']} steps, {eng['summary']['compiles']} "
               f"graph captures ({eng['summary']['compile_s']:.3f} s), "
@@ -1273,9 +1334,11 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
         handoff0 = parse_prometheus_text(data.decode())
 
         ca.reset_launches()
-        prefill0 = [(e.prefill_replays, e.prefill_captures,
-                     e.prefill_capture_s, dict(e.prefill_graph_launches))
-                    for e in engines]
+        def prefill_account(e):
+            return (e.graph_replays["prefill"], e.graph_captures["prefill"],
+                    e.graph_capture_s["prefill"], e.graph_launches("prefill"))
+
+        prefill0 = [prefill_account(e) for e in engines]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         adopted_equal = []
@@ -1316,15 +1379,16 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
         replayed = {}
         for role, e, (n0, c0, s0, l0) in zip(("prefill", "decode"), engines,
                                              prefill0):
+            n1, c1, s1, l1 = prefill_account(e)
             replayed[role] = {
-                "replays": e.prefill_replays - n0,
-                "captures": e.prefill_captures - c0,
-                "capture_s": round(e.prefill_capture_s - s0, 3),
-                "launches": {k: v - l0.get(k, 0)
-                             for k, v in e.prefill_graph_launches.items()}}
+                "replays": n1 - n0, "captures": c1 - c0,
+                "capture_s": round(s1 - s0, 3),
+                "launches": {k: v - l0.get(k, 0) for k, v in l1.items()}}
         print(f"[fleet] launches on the fleet path: {json.dumps(launches)}; "
               f"by worker {json.dumps(by_worker)}; prefill graph replays by "
               f"worker {json.dumps(replayed)}")
+        for role, e in zip(("prefill", "decode"), engines):
+            print(f"[fleet] held, {role} worker: {_held(e)}")
         pl = replayed["prefill"]["launches"]
         check(pl.get("flash_causal", 0) > 0 and pl.get("flash_prefix", 0) > 0,
               f"[fleet] the prefill worker replayed no prefill graphs holding "
@@ -1506,11 +1570,10 @@ def main() -> int:
                 store.kill()
                 store.wait()
     # each kernel's launches over the path that runs it: K1-K3 the serving
-    # path, K4 the overhead path.  The engine hands K2 its length only as a
-    # device tensor (the prefill graphs' ``plen``), so every K2 launch of
-    # the serving path is a device-length launch
+    # path (K2's device-length entry: the K2 launches whose caller passed
+    # the length as a device tensor, as the prefill graphs do), K4 the
+    # overhead path
     launches["paged_decode_alllayers"] = overhead["paged_decode_alllayers"]
-    launches["flash_prefix_device_len"] = launches["flash_prefix"]
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": launches[key],

@@ -35,9 +35,11 @@ body over static device buffers that runs eagerly on the CPU:
 
 A key's first use runs its body eagerly on the engine's stream and is
 captured after it.  A failed capture or replay raises: nothing falls back
-to the eager body.  The single chunk over an exact adopted prefix,
-``prefill_batch``'s padded groups and ``prompt_logprobs`` run eagerly, as
-their shapes follow the prompt.  Where the reference donates the cache to a
+to the eager body.  The whole prompt in one forward (``prefill_chunk``
+None), the single chunk over an exact adopted prefix, ``prefill_batch``'s
+padded groups and ``prompt_logprobs`` run eagerly, as their shapes follow
+the prompt.  A prefill computes the LM head at one row, the last
+token's.  Where the reference donates the cache to a
 compiled scatter, this engine updates it in place (``index_put_`` /
 ``copy_``).  Page bookkeeping stays in Python, as in the reference.
 
@@ -49,6 +51,7 @@ Not in this engine yet (each raises when asked for): a clustered store
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -387,7 +390,6 @@ class PartialPrefill:
     plen: int            # valid prefix length inside buf
     S: int               # unpadded suffix length
     off: int = 0         # next chunk offset into padded
-    off_last: int = 0
     # provenance carried onto the SequenceState (see its fields)
     local_chunks: int = 0
     store_chunks: int = 0
@@ -498,24 +500,23 @@ class InferenceEngine:
         # The stream is the engine's: two engines in one process never
         # share K1's per-stream workspace.
         self._graphs: Dict[tuple, "_DecodeGraph"] = {}
-        # the prefill graphs, by (route, prefix capacity, chunk bucket)
+        # the prefill graphs, by (route, prefix capacity, chunk bucket),
+        # and the static buffers they share, since they replay one at a
+        # time: the device prefix length, the logits row, the outputs (at
+        # the largest bucket) and one prefix buffer per capacity
         self._prefill_graphs: Dict[tuple, "_PrefillGraph"] = {}
+        self._pf_shared: Dict[str, torch.Tensor] = {}
+        self._pf_prefix: Dict[int, torch.Tensor] = {}
         self._pool = None
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
-        # capture count and seconds, replays and the host seconds spent
-        # issuing them (no sync inside): the decode graphs' own account,
-        # then the prefill graphs', with the kernel launches their replays
-        # made
-        self.graph_captures = 0
-        self.graph_capture_s = 0.0
-        self.graph_replays = 0
-        self.graph_replay_s = 0.0
-        self.prefill_captures = 0
-        self.prefill_capture_s = 0.0
-        self.prefill_replays = 0
-        self.prefill_replay_s = 0.0
-        self.prefill_graph_launches: Dict[str, int] = {}
+        # per graph kind ("decode", "prefill"): captures and their
+        # seconds, replays and the host seconds spent issuing them (no
+        # sync inside); ``graph_launches`` reads what the replays launched
+        self.graph_captures = dict.fromkeys(_GRAPH_KINDS, 0)
+        self.graph_capture_s = dict.fromkeys(_GRAPH_KINDS, 0.0)
+        self.graph_replays = dict.fromkeys(_GRAPH_KINDS, 0)
+        self.graph_replay_s = dict.fromkeys(_GRAPH_KINDS, 0.0)
         # the vocabulary's share of the counter-based sampling hash
         self._vocab_hash = (torch.arange(cfg.vocab_size, dtype=torch.long,
                                          device=self.device)
@@ -639,23 +640,30 @@ class InferenceEngine:
         """One prefill chunk forward plus its cache landing.  Returns the
         finished SequenceState on the last chunk, else None.
 
-        The chunk runs through its key's prefill-graph body
-        (``_prefill_chunk``): on the card the key's CUDA graph replays it,
-        and ``eager=True`` runs the body eagerly there too (the graphs'
-        yardstick in the card tests and ``chip_smoke.py``).  The single
-        chunk over an exact adopted prefix runs ``prefill_forward`` itself
-        (K3 at ``q_offset = P``): its shape follows ``P``."""
+        With ``prefill_chunk`` set, the chunk runs through its key's
+        prefill-graph body (``_prefill_chunk``): on the card the key's CUDA
+        graph replays it, and ``eager=True`` runs the body eagerly there
+        too (the graphs' yardstick in the card tests and
+        ``chip_smoke.py``).  Two routes run ``prefill_forward`` itself, as
+        their shape follows the prompt: the whole prompt in one forward
+        (``prefill_chunk`` None) and the single chunk over an exact
+        adopted prefix (K3 at ``q_offset = P``)."""
         T = self.pc.block_tokens
         off, C = pp.off, pp.C
         chunk = pp.padded[off: off + C]
         n = len(chunk)
+        # the only logits row a prefill needs: the prompt's last token's
+        # (any row of a chunk that is not the last)
+        last = max(0, min(pp.S - 1 - off, n - 1))
         with self._on_engine_stream():
-            if pp.single and pp.buf is not None:
+            if self.prefill_chunk is None or (pp.single and
+                                              pp.buf is not None):
                 logits, kv = prefill_forward(
                     self.params, self.cfg, self._tokens([chunk]),
-                    prefix_kv=pp.buf)
+                    prefix_kv=pp.buf, logits_rows=torch.tensor(
+                        [last], dtype=torch.long, device=self.device))
             else:
-                logits, kv = self._prefill_chunk(pp, chunk, eager)
+                logits, kv = self._prefill_chunk(pp, chunk, last, eager)
                 kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
             # the chunk forward + its cache landing: one prefill dispatch
             # unit for the step profiler
@@ -665,7 +673,6 @@ class InferenceEngine:
                 self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
             )
             prev_done, pp.done = pp.done, pp.done + n_pg
-            pp.off_last = off
             # stream this chunk's complete pages to the store NOW: the
             # gather is queued behind the cache write on the compute
             # stream, the streamer's copies run while the next chunk
@@ -693,10 +700,9 @@ class InferenceEngine:
                     pp.buf[:, :, :, pp.plen: need] = kv
                 pp.plen = need
                 return None
-            # a copy, and taken now: a view would pin the chunk's whole
-            # [C, V] logits, and a graph's logits are rewritten by the
-            # key's next replay
-            last_logits = logits[0, (pp.S - 1) - pp.off_last].clone()
+            # a copy, and taken now: a graph's logits are rewritten by the
+            # next replay
+            last_logits = logits[0, 0].clone()
 
         # finished.  Strict durability joins the pusher so the pages are
         # durably in the store before the state is visible; relaxed returns
@@ -741,64 +747,90 @@ class InferenceEngine:
             current.wait_stream(stream)
 
     def _prefill_chunk(self, pp: PartialPrefill, chunk: List[int],
-                       eager: bool):
-        """A chunk's (logits, kv) through its key's prefill-graph body:
-        the tokens padded to the bucket, ``pp``'s valid prefix rows and
-        length copied into the key's static buffers, then the body run
-        eagerly (on the CPU, with ``eager``, and at a key's first use, which
-        captures the key after it) or the key's graph replayed.  The
-        outputs hold the bucket's rows; a replay's are the graph's own
-        tensors, rewritten by the key's next replay."""
+                       last: int, eager: bool):
+        """A chunk's (logits of row ``last`` [1, 1, V], kv [L, 2, 1, Cb, H,
+        D]) through its key's prefill-graph body: the tokens padded to the
+        bucket, the row index, ``pp``'s valid prefix rows and length copied
+        into the key's static buffers, then the body run eagerly (on the
+        CPU, with ``eager``, and at a key's first use, which captures the
+        key after it) or the key's graph replayed.  The outputs are the
+        prefill graphs' shared static tensors, rewritten by the next
+        prefill chunk."""
         n = len(chunk)
         Cb = _round_up_pow2(n, self.pc.block_tokens)
         if pp.buf is None:
             key = ("causal", 0, Cb)
         else:
             key = ("prefix", pp.buf.shape[3], Cb)
-        g = self._prefill_graphs.get(key)
-        if g is None:
-            g = self._prefill_graphs[key] = _PrefillGraph(
-                key, self.cfg, self.params["lm_head"].dtype, self.device)
+        g = self._prefill_graph(key)
         g.tokens.copy_(torch.tensor([chunk + [0] * (Cb - n)],
                                     dtype=torch.int32))
+        g.last.fill_(last)
         if g.buf is not None:
-            # several partial prefills share the key: each replay brings
+            # several partial prefills share the buffer: each chunk brings
             # its own prefix in (the slack past ``plen`` is masked)
             g.plen.fill_(pp.plen)
             g.buf[:, :, :, :pp.plen].copy_(pp.buf[:, :, :, :pp.plen])
         if eager or self.device.type != "cuda":
-            return self._prefill_body(g)
-        if g.graph is None:
-            out = self._prefill_body(g)
-            g.out, secs = self._capture_graph(
-                g, lambda: self._prefill_body(g), f"prefill{key}")
+            self._prefill_body(g)
+        elif g.graph is None:
+            self._prefill_body(g)
+            self._capture_graph(g, lambda: self._prefill_body(g),
+                                f"prefill{key}", "prefill")
             g.param_ptrs = self._param_ptrs()
-            self.prefill_captures += 1
-            self.prefill_capture_s += secs
-            return out
-        if g.param_ptrs != self._param_ptrs():
-            # the graph reads the weights it was captured with
-            raise RuntimeError("the weights moved since this prefill graph "
-                               "was captured")
-        t0 = time.perf_counter()
-        g.graph.replay()
-        ca.count_replay(g.captured)
-        self.prefill_replays += 1
-        self.prefill_replay_s += time.perf_counter() - t0
-        for k, c in g.captured.items():
-            self.prefill_graph_launches[k] = (
-                self.prefill_graph_launches.get(k, 0) + c)
-        return g.out
+        else:
+            if g.param_ptrs != self._param_ptrs():
+                # the graph reads the weights it was captured with
+                raise RuntimeError("the weights moved since this prefill "
+                                   "graph was captured")
+            self._replay(g, "prefill")
+        return g.logits, g.kv
 
-    def _prefill_body(self, g: "_PrefillGraph"):
+    def _prefill_graph(self, key: tuple) -> "_PrefillGraph":
+        """``key``'s prefill graph, made at its first use over the shared
+        static buffers (the KV output at the largest bucket a chunk of
+        ``prefill_chunk`` tokens takes)."""
+        g = self._prefill_graphs.get(key)
+        if g is not None:
+            return g
+        route, cap, Cb = key
+        cfg, dev = self.cfg, self.device
+        dtype = self.params["lm_head"].dtype
+        sh = self._pf_shared
+        if not sh:
+            rows = _round_up_pow2(self.prefill_chunk, self.pc.block_tokens)
+            sh.update(
+                plen=torch.zeros((), dtype=torch.int32, device=dev),
+                last=torch.zeros((1,), dtype=torch.long, device=dev),
+                logits=torch.zeros((1, 1, cfg.vocab_size), dtype=dtype,
+                                   device=dev),
+                kv=torch.zeros(cfg.n_layers * 2 * rows * cfg.n_kv_heads
+                               * cfg.head_dim, dtype=dtype, device=dev))
+        buf = None
+        if route == "prefix":
+            buf = self._pf_prefix.get(cap)
+            if buf is None:
+                buf = self._pf_prefix[cap] = torch.zeros(
+                    (cfg.n_layers, 2, 1, cap, cfg.n_kv_heads, cfg.head_dim),
+                    dtype=dtype, device=dev)
+        kv_shape = (cfg.n_layers, 2, 1, Cb, cfg.n_kv_heads, cfg.head_dim)
+        g = self._prefill_graphs[key] = _PrefillGraph(
+            key, torch.zeros((1, Cb), dtype=torch.int32, device=dev),
+            sh["last"], sh["plen"] if buf is not None else None, buf,
+            sh["logits"], sh["kv"][:math.prod(kv_shape)].view(kv_shape))
+        return g
+
+    def _prefill_body(self, g: "_PrefillGraph") -> None:
         """The prefill chunk body over ``g``'s static buffers: K3 over the
         bucket's tokens, or K2 over the prefix buffer with the device
-        ``prefix_len``.  The same code runs eagerly on the CPU and is what
-        a CUDA graph captures on the card."""
-        if g.buf is None:
-            return prefill_forward(self.params, self.cfg, g.tokens)
-        return prefill_forward(self.params, self.cfg, g.tokens,
-                               prefix_kv=g.buf, prefix_len=g.plen)
+        ``prefix_len``; the logits of row ``g.last`` and the chunk's KV land
+        in the shared outputs.  The same code runs eagerly on the CPU and
+        is what a CUDA graph captures on the card."""
+        logits, kv = prefill_forward(self.params, self.cfg, g.tokens,
+                                     prefix_kv=g.buf, prefix_len=g.plen,
+                                     logits_rows=g.last)
+        g.logits.copy_(logits)
+        g.kv.copy_(kv)
 
     def _param_ptrs(self) -> tuple:
         p = self.params
@@ -1029,19 +1061,19 @@ class InferenceEngine:
         """Capture ``_step(g)`` into ``g``'s CUDA graph.  The caller has
         just run one eager step on the engine's stream, so K1's workspace
         is sized and cuBLAS is set up for these shapes."""
-        _, secs = self._capture_graph(g, lambda: self._step(g),
-                                      f"decode_step{g.key}")
+        self._capture_graph(g, lambda: self._step(g), f"decode_step{g.key}",
+                            "decode")
         g.cache_ptr = self.cache.data_ptr()
-        self.graph_captures += 1
-        self.graph_capture_s += secs
 
-    def _capture_graph(self, g, body, name: str):
+    def _capture_graph(self, g, body, name: str, kind: str) -> None:
         """Capture ``body()`` into a CUDA graph on the engine's stream, out
         of the engine's graph pool; sets ``g.graph`` and ``g.captured`` (the
         launches each replay makes), notes the capture under ``name`` for
         the step profiler (``/debug/engine`` shows it as a compile) and
-        returns what ``body`` returned (the graph's output tensors) and the
-        capture's seconds.  A failed capture raises."""
+        counts it and its seconds under ``kind``.  ``body`` writes only
+        static tensors made outside the capture, so nothing the pool holds
+        outlives a replay and any graph of the pool may replay next.  A
+        failed capture raises."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -1055,14 +1087,37 @@ class InferenceEngine:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
-                out = body()
+                body()
             finally:
                 graph.capture_end()
         secs = time.perf_counter() - t0
         g.captured = tally
         g.graph = graph
+        self.graph_captures[kind] += 1
+        self.graph_capture_s[kind] += secs
         _stepprof.note_capture(name, secs)
-        return out, secs
+
+    def _replay(self, g, kind: str, times: int = 1) -> None:
+        """Replay ``g``'s graph ``times`` times, each adding its captured
+        launches to this thread's counts, and account the replays and
+        their host seconds under ``kind``."""
+        t0 = time.perf_counter()
+        for _ in range(times):
+            g.graph.replay()
+            ca.count_replay(g.captured)
+        g.replays += times
+        self.graph_replays[kind] += times
+        self.graph_replay_s[kind] += time.perf_counter() - t0
+
+    def graph_launches(self, kind: str) -> Dict[str, int]:
+        """The kernel launches the replays of the ``kind`` graphs made:
+        each graph's captured launches times its replays."""
+        graphs = self._graphs if kind == "decode" else self._prefill_graphs
+        out: Dict[str, int] = {}
+        for g in graphs.values():
+            for k, c in g.captured.items():
+                out[k] = out.get(k, 0) + c * g.replays
+        return out
 
     def _run_chunk(self, g: "_DecodeGraph", chunk: int, eager: bool) -> None:
         """``chunk`` decode steps over ``g``'s buffers.  On the CPU (and
@@ -1085,12 +1140,7 @@ class InferenceEngine:
             # memory the engine no longer owns
             raise RuntimeError("the paged cache moved since this decode "
                                "graph was captured")
-        t0 = time.perf_counter()
-        for _ in range(done, chunk):
-            g.graph.replay()
-            ca.count_replay(g.captured)
-        self.graph_replays += chunk - done
-        self.graph_replay_s += time.perf_counter() - t0
+        self._replay(g, "decode", chunk - done)
 
     def decode(
         self,
@@ -1443,14 +1493,18 @@ class InferenceEngine:
 
     def held_bytes(self) -> int:
         """Bytes of the tensors this engine holds: weights, the paged
-        cache and the decode graphs' static buffers (the step profiler's
-        memory reading on the CPU)."""
+        cache and the graphs' static buffers (the step profiler's memory
+        reading on the CPU), each storage the graphs share counted once."""
         ts = [self.params["embed"], self.params["lm_head"],
               self.params["ln_out"], *self.params["layers"].values(),
               self.cache]
+        graphs = {}
         for g in [*self._graphs.values(), *self._prefill_graphs.values()]:
-            ts.extend(g.buffers())
-        return sum(t.numel() * t.element_size() for t in ts)
+            for t in g.buffers():
+                st = t.untyped_storage()
+                graphs[st.data_ptr()] = st.nbytes()
+        return sum(t.numel() * t.element_size() for t in ts) + \
+            sum(graphs.values())
 
     def _reclaim_window_pages(self, st: SequenceState) -> None:
         """Sliding-window page reclamation: when EVERY layer is windowed
@@ -1536,6 +1590,7 @@ class _DecodeGraph:
         self.graph = None
         self.cache_ptr = None  # the cache the graph was captured against
         self.captured: Dict[str, int] = {}
+        self.replays = 0
 
     def buffers(self) -> List[torch.Tensor]:
         return [t for t in vars(self).values() if isinstance(t, torch.Tensor)
@@ -1543,37 +1598,34 @@ class _DecodeGraph:
 
 
 class _PrefillGraph:
-    """One prefill-graph key's static device buffers, its captured chunk
-    (``graph``, None until captured; always None on the CPU), the output
-    tensors the capture returned (``out``: logits [1, Cb, V] and KV [L, 2,
-    1, Cb, H_kv, D], rewritten at each replay) and the kernel launches the
-    capture recorded (``captured``).
+    """One prefill-graph key: its token buffer, the static buffers it
+    shares with the engine's other prefill keys, its captured chunk
+    (``graph``, None until captured; always None on the CPU), the kernel
+    launches the capture recorded (``captured``) and its replays.
 
     ``key`` = (route, prefix capacity, chunk bucket ``Cb``): route
     ``"causal"`` is a chunk with no prefix (K3; capacity 0), ``"prefix"`` a
     later chunk of a prompt over the bucketed prefix buffer of that many
-    rows (K2, whose valid length it reads from ``plen`` on the device)."""
+    rows (K2, whose valid length it reads from ``plen`` on the device).
+    Shared: ``last`` (the logits row, [1] int64), ``plen``, ``buf`` (one
+    per capacity) and the outputs ``logits`` [1, 1, V] and ``kv`` [L, 2, 1,
+    Cb, H_kv, D] (a view of one buffer at the largest bucket)."""
 
-    def __init__(self, key, cfg, dtype: torch.dtype, device):
-        route, cap, Cb = key
+    def __init__(self, key, tokens, last, plen, buf, logits, kv):
         self.key = key
-        self.tokens = torch.zeros((1, Cb), dtype=torch.int32, device=device)
-        self.plen = self.buf = None
-        if route == "prefix":
-            self.plen = torch.zeros((), dtype=torch.int32, device=device)
-            self.buf = torch.zeros(
-                (cfg.n_layers, 2, 1, cap, cfg.n_kv_heads, cfg.head_dim),
-                dtype=dtype, device=device)
-        self.out = None
+        self.tokens, self.last, self.plen, self.buf = tokens, last, plen, buf
+        self.logits, self.kv = logits, kv
         self.graph = None
         self.param_ptrs = None  # the weights the graph was captured with
         self.captured: Dict[str, int] = {}
+        self.replays = 0
 
     def buffers(self) -> List[torch.Tensor]:
-        return [t for t in (self.tokens, self.plen, self.buf,
-                            *(self.out or ())) if t is not None]
+        return [t for t in (self.tokens, self.last, self.plen, self.buf,
+                            self.logits, self.kv) if t is not None]
 
 
+_GRAPH_KINDS = ("decode", "prefill")
 _M32 = 0xFFFFFFFF
 _SPEC_TODO = ("speculative decoding (propose / sampling_probs / verify) is "
               "not ported yet (ROADMAP.md queue 1 item 8)")

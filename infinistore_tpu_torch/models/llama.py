@@ -253,6 +253,7 @@ def prefill_forward(
     tokens: torch.Tensor,
     prefix_kv: Optional[torch.Tensor] = None,
     prefix_len=None,
+    logits_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
@@ -269,6 +270,10 @@ def prefill_forward(
     tensor is never read on the host: positions are ``arange(S) +
     prefix_len`` on the device, so one CUDA graph of this forward serves
     every length of a buffer.
+
+    ``logits_rows`` (a 1-d int64 tensor on the tokens' device): logits only
+    at those rows of each sequence, [B, len(logits_rows), V]; the KV is
+    unchanged.  A prefill needs one row, so the LM head skips the rest.
     """
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]
@@ -294,6 +299,8 @@ def prefill_forward(
                 prefix_len=prefix_len, window=win, softcap=cfg.attn_softcap,
             )
         x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1))
+    if logits_rows is not None:
+        x = x.index_select(1, logits_rows)
     x = _norm(cfg, x, params["ln_out"])
     return _final_logits(params, cfg, x), torch.stack(kvs)
 

@@ -53,8 +53,10 @@ import torch
 
 from . import build
 
+# "flash_prefix_device_len" counts the K2 launches whose caller passed the
+# length as a device tensor (each also counts under "flash_prefix")
 KERNELS = ("paged_decode", "flash_causal", "flash_prefix",
-           "paged_decode_alllayers")
+           "paged_decode_alllayers", "flash_prefix_device_len")
 # launches of each kernel per launching thread (thread ident -> counts),
 # since the last reset (CPU calls are not launches)
 BY_THREAD: dict = {}
@@ -483,10 +485,11 @@ def paged_decode_attention_alllayers_cuda(
 
 
 def _flash(q, k, v, q_offset: int, prefix_pad: int,
-           prefix_len: Optional[torch.Tensor], counter: str) -> torch.Tensor:
+           prefix_len: Optional[torch.Tensor], counters) -> torch.Tensor:
     """Check and launch ``csrc/flash_attention.cu``: K3 with
     ``prefix_pad`` -1, or K2 reading its length from ``prefix_len`` (a
-    device int32) when it runs."""
+    device int32) when it runs; the launch counts under each of
+    ``counters``."""
     _check_attention_dtype(q)
     B, Sq, H, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
@@ -509,7 +512,8 @@ def _flash(q, k, v, q_offset: int, prefix_pad: int,
         None if prefix_len is None else prefix_len.data_ptr(),
         1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
     )
-    _count(counter)
+    for counter in counters:
+        _count(counter)
     return out
 
 
@@ -526,7 +530,7 @@ def flash_causal_attention_cuda(
                          f"got {q.device}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    return _flash(q, k, v, int(q_offset), -1, None, "flash_causal")
+    return _flash(q, k, v, int(q_offset), -1, None, ("flash_causal",))
 
 
 def flash_prefix_attention_cuda(
@@ -555,7 +559,9 @@ def flash_prefix_attention_cuda(
     prefix_pad = int(prefix_pad)
     if prefix_pad < 0:
         raise ValueError(f"prefix_pad must be >= 0, got {prefix_pad}")
+    counters = ("flash_prefix",)
     if isinstance(prefix_len, torch.Tensor):
+        counters += ("flash_prefix_device_len",)
         if prefix_len.dim() != 0 or prefix_len.dtype != torch.int32:
             raise TypeError(f"a device prefix_len must be a 0-d int32 "
                             f"tensor, got {prefix_len.dtype} "
@@ -574,4 +580,4 @@ def flash_prefix_attention_cuda(
     if k.shape[1] != prefix_pad + q.shape[1]:
         raise ValueError(f"k/v must hold prefix_pad + Sq = "
                          f"{prefix_pad + q.shape[1]} rows, got {k.shape[1]}")
-    return _flash(q, k, v, 0, prefix_pad, prefix_len, "flash_prefix")
+    return _flash(q, k, v, 0, prefix_pad, prefix_len, counters)

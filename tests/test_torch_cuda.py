@@ -526,8 +526,8 @@ def test_decode_graph_replay_equals_eager_body(dev, variant, extra):
                                       rng=torch.Generator().manual_seed(5),
                                       **kw))
         logits.append(torch.stack([st.last_logits for st in states]))
-        assert eng.graph_replays == (0 if eager else 10 - 1)
-        assert eng.graph_captures == (0 if eager else 1)
+        assert eng.graph_replays["decode"] == (0 if eager else 10 - 1)
+        assert eng.graph_captures["decode"] == (0 if eager else 1)
     assert outs[0] == outs[1]
     assert torch.equal(logits[0], logits[1])
 
@@ -541,13 +541,15 @@ def test_decode_graph_one_capture_per_key(dev):
     eng = InferenceEngine(params, cfg, pc, decode_chunk=4, device=dev)
     states = [eng.prefill(p) for p in _PROMPTS]
     eng.decode_batch(states, 5)
-    assert eng.graph_captures == 1 and eng.graph_replays == 4
+    assert eng.graph_captures["decode"] == 1
+    assert eng.graph_replays["decode"] == 4
     eng.decode_batch(states, 7)
-    assert eng.graph_captures == 1 and eng.graph_replays == 11
+    assert eng.graph_captures["decode"] == 1
+    assert eng.graph_replays["decode"] == 11
     eng.decode_batch(states[:1], 3)  # batch bucket 1: a key of its own
-    assert eng.graph_captures == 2 and len(eng._graphs) == 2
+    assert eng.graph_captures["decode"] == 2 and len(eng._graphs) == 2
     eng.decode_batch(states[:2], 3, logprobs=2)  # logprobs: another key
-    assert eng.graph_captures == 3
+    assert eng.graph_captures["decode"] == 3
 
 
 def test_decode_graph_counts_k1_launches_per_replay(dev):
@@ -591,7 +593,7 @@ def test_decode_graph_capture_while_store_push_in_flight(dev, store_port):
         states = [eng.prefill(p) for p in prompts]
         got = eng.decode_batch(states, 9)
         eng.store_flush()
-        assert eng.graph_captures == 1
+        assert eng.graph_captures["decode"] == 1
         ref = InferenceEngine(params, cfg, pc, decode_chunk=4, device=dev)
         want = ref._decode_batch([ref.prefill(p) for p in prompts], 9,
                                  eager=True)
@@ -636,7 +638,7 @@ def test_window_and_softcap_configs_run_on_the_card(dev, family):
     cos = torch.nn.functional.cosine_similarity(ref, card, dim=0).item()
     err = (ref - card).abs().max().item()
     assert cos >= 0.999 and err <= 2e-2 * ref.abs().max().item(), (cos, err)
-    assert got["cuda"][1].graph_replays > 0
+    assert got["cuda"][1].graph_replays["decode"] > 0
     if family == "mistral_window":  # window-dead pages went back
         assert got["cuda"][2].reclaimed_pages == got["cpu"][2].reclaimed_pages
 
@@ -698,8 +700,8 @@ def test_prefill_graph_replay_equals_eager_body(dev):
         chunks, firsts, pages = [], [], []
         body = eng._prefill_chunk
 
-        def spy(pp, chunk, e, body=body, chunks=chunks):
-            logits, kv = body(pp, chunk, e)
+        def spy(pp, chunk, last, e, body=body, chunks=chunks):
+            logits, kv = body(pp, chunk, last, e)
             chunks.append((logits.clone(), kv.clone()))
             return logits, kv
 
@@ -722,11 +724,12 @@ def test_prefill_graph_replay_equals_eager_body(dev):
     assert set(eng._prefill_graphs) == {
         ("causal", 0, 32), ("causal", 0, 64), ("prefix", 64, 64),
         ("prefix", 128, 64), ("prefix", 256, 16)}
-    assert eng.prefill_captures == 5 and eng.prefill_replays == 20 - 5
-    assert runs[True][0].prefill_captures == 0
-    assert runs[True][0].prefill_replays == 0
-    assert eng.prefill_graph_launches["flash_causal"] > 0
-    assert eng.prefill_graph_launches["flash_prefix"] > 0
+    assert eng.graph_captures["prefill"] == 5
+    assert eng.graph_replays["prefill"] == 20 - 5
+    assert runs[True][0].graph_captures["prefill"] == 0
+    assert runs[True][0].graph_replays["prefill"] == 0
+    assert eng.graph_launches("prefill")["flash_causal"] > 0
+    assert eng.graph_launches("prefill")["flash_prefix"] > 0
     for name, a, b in (("chunks", runs[True][1], chunks),
                        ("first-token logits", runs[True][2], firsts),
                        ("pages", runs[True][3], pages)):
@@ -750,5 +753,30 @@ def test_prefill_graph_counts_kernels_per_replay(dev):
     torch.cuda.synchronize()
     assert ca.LAUNCHES["flash_causal"] == cfg.n_layers
     assert ca.LAUNCHES["flash_prefix"] == cfg.n_layers
+    # the graph hands K2 its length as a device tensor
+    assert ca.LAUNCHES["flash_prefix_device_len"] == cfg.n_layers
     assert ca.CAPTURED == dict.fromkeys(ca.KERNELS, 0)
-    assert eng.prefill_replays == 2
+    assert eng.graph_replays["prefill"] == 2
+
+
+def test_whole_prompt_prefill_replays_no_graph(dev):
+    """``prefill_chunk`` None runs the whole prompt in one eager forward at
+    its own length: no prefill-graph key, no replay, K3 launched once per
+    layer, the LM head at the last row only."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import prefill_forward
+
+    params, cfg, pc = _engine_parts(dev)
+    eng = InferenceEngine(params, cfg, pc, device=dev)
+    p = np.random.default_rng(3).integers(0, 500, 150).tolist()
+    ca.reset_launches()
+    st = eng.prefill(p)
+    torch.cuda.synchronize()
+    assert not eng._prefill_graphs
+    assert eng.graph_captures["prefill"] == eng.graph_replays["prefill"] == 0
+    assert ca.LAUNCHES["flash_causal"] == cfg.n_layers
+    assert ca.LAUNCHES["flash_prefix"] == 0
+    padded = p + [0] * ((-len(p)) % pc.block_tokens)
+    full, _ = prefill_forward(params, cfg, torch.tensor(
+        [padded], dtype=torch.int32, device=dev))
+    _close(st.last_logits, full[0, len(p) - 1], torch.bfloat16)

@@ -85,7 +85,7 @@ def test_two_engines_capturing_at_once_count_their_own_launches(dev):
     assert not any(t.is_alive() for t in threads)
     assert not errors, "\n".join(errors)
     for eng in engines:
-        assert eng.graph_captures >= 3
+        assert eng.graph_captures["decode"] >= 3
         for g in eng._graphs.values():
             if g.graph is not None:
                 assert g.captured == {"paged_decode": cfg.n_layers}, g.key
@@ -95,7 +95,7 @@ def test_two_engines_capturing_at_once_count_their_own_launches(dev):
     # each engine: every key's eager first step and every replay
     for eng, m in zip(engines, mine):
         assert m["paged_decode"] == cfg.n_layers * (
-            eng.graph_replays + eng.graph_captures)
+            eng.graph_replays["decode"] + eng.graph_captures["decode"])
     ca.reset_launches()
 
 
@@ -126,7 +126,7 @@ def test_tiny_serves_on_the_card_through_the_kernels(dev, dtype):
         toks = eng.decode_batch(states, 9)
         if d.type == "cuda":
             torch.cuda.synchronize()
-            assert eng.graph_replays > 0
+            assert eng.graph_replays["decode"] > 0
         got[d.type] = (first, toks, dict(ca.LAUNCHES))
     assert not any(got["cpu"][2].values())
     launches = got["cuda"][2]

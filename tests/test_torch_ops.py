@@ -161,7 +161,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
         ca.paged_decode_attention_alllayers_cuda(qs, caches, tt, tl),
         ca.paged_decode_attention_alllayers_xla(qs, caches, tt, tl))
     assert ca.LAUNCHES == {"paged_decode": 0, "flash_causal": 0,
-                           "flash_prefix": 0, "paged_decode_alllayers": 0}
+                           "flash_prefix": 0, "paged_decode_alllayers": 0,
+                           "flash_prefix_device_len": 0}
 
 
 def test_repeat_kv_serves_each_kv_head_to_its_query_group():

@@ -15,8 +15,9 @@ body a CUDA graph captures on the card.  Held against the JAX engine's
   max|logit| of the port's own whole-prompt forward.
 
 Also: two partial prefills interleaved chunk by chunk give what each gives
-alone, the graph keys stay a handful however many prompt lengths arrive,
-and the plain K2 with a tensor ``prefix_len`` is ``torch.equal`` to its
+alone, the graph keys and their buffers stay a handful however many prompt
+lengths arrive, the whole prompt (``prefill_chunk`` None) runs in one
+forward at its own length, and the plain K2 with a tensor ``prefix_len`` is ``torch.equal`` to its
 host-int form.
 """
 
@@ -56,7 +57,7 @@ def _setup(dtype: str):
     return _PARAMS[dtype]
 
 
-def _engines(dtype="f32", n_blocks=96):
+def _engines(dtype="f32", n_blocks=96, chunk=C):
     cfg, tcfg, params, tparams = _setup(dtype)
     jpc = JPC(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim, n_blocks=n_blocks, block_tokens=T,
@@ -64,9 +65,9 @@ def _engines(dtype="f32", n_blocks=96):
     tpc = PagedCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
                            head_dim=cfg.head_dim, n_blocks=n_blocks,
                            block_tokens=T, dtype=tcfg.dtype)
-    return (JEngine(params, cfg, jpc, kv_quant=None, prefill_chunk=C),
+    return (JEngine(params, cfg, jpc, kv_quant=None, prefill_chunk=chunk),
             InferenceEngine(tparams, tcfg, tpc, device="cpu",
-                            prefill_chunk=C))
+                            prefill_chunk=chunk))
 
 
 def _prompt(n, seed):
@@ -197,6 +198,42 @@ def test_graph_keys_stay_bounded_across_prompt_lengths():
     assert len(keys) <= 12
     print(f"prefill graph keys for 64 prompt lengths: {len(keys)}: "
           f"{sorted(keys)}")
+
+
+def test_graph_buffers_stay_bounded_across_prompt_lengths():
+    """The keys share their static buffers: one KV output at the largest
+    bucket, one logits row, one length, one prefix buffer per capacity;
+    each key adds only its token row."""
+    _, te = _engines(n_blocks=256)
+    for n in range(1, 65):
+        te.release(_run(te, _prompt(n, 200 + n)))
+    cfg = te.cfg
+    row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 4  # f32 KV
+    caps = {k[1] for k in te._prefill_graphs if k[0] == "prefix"}
+    assert caps == {16, 32, 64}
+    want = (C * row                          # KV output, 16-row bucket
+            + cfg.vocab_size * 4 + 8 + 4     # logits row, row index, length
+            + sum(caps) * row                # prefix buffers
+            + sum(k[2] for k in te._prefill_graphs) * 4)  # token rows
+    _, fresh = _engines(n_blocks=256)
+    assert te.held_bytes() - fresh.held_bytes() == want
+
+
+def test_whole_prompt_route_runs_eagerly_f32():
+    """``prefill_chunk`` None (the serve default) computes the whole
+    prompt in one forward at its own length: no graph key, no bucket
+    padding, and the reference's whole-prompt prefill within 1e-4."""
+    je, te = _engines(chunk=None)
+    for n in (7, 37):
+        p = _prompt(n, 300 + n)
+        js, ts = _run(je, p), _run(te, p)
+        np.testing.assert_allclose(ts.last_logits.numpy(),
+                                   np.asarray(js.last_logits), rtol=1e-4,
+                                   atol=1e-4)
+        assert te.decode(ts, 6) == je.decode(js, 6)
+        for e, st in ((je, js), (te, ts)):
+            e.release(st)
+    assert not te._prefill_graphs and not te._pf_shared
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
