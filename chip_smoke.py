@@ -79,7 +79,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    client's desc/copy/verify, fetch, scatter, tail), B's adopted prefill
    beside B's store-free cold prefill, and the same hop with one staging
    slot cold (the allocation inside the hop), push/load rates;
-6b. cluster path (after the lora path, the native server of phase 6
+6b. cluster path (after the lora and tp paths, the native server of phase 6
    stopped): three of the port's native store nodes (2 GiB /dev/shm pools),
    engines A (strict durability) and B each on a ``RoutedStorePool`` over
    them (replicas 2, native clients, lossless bf16 pages); A pins and
@@ -138,11 +138,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    key's replay and the B=8 decode graph equal to their eager bodies, the
    decode step, a cold 1500-token prefill and their device time by kind,
    held bytes;
+7d. tp path (after the lora path, on its native store server):
+   tensor-parallel serving over ``torch.distributed``, each rank a
+   spawned process.  Two gloo ranks share cuda:0 (their collectives cross
+   the host, so its times are no tensor-parallel speed): each
+   ``_tp`` composition (K1 at the mixed batch, K3 at 2048 tokens, K2 at
+   1024/700/512) on its head shard of seeded bf16 inputs, gathered and
+   held against the plain version over all heads, each rank's launches
+   and median device ms beside the bound of its shard's work; then
+   Llama-3-8B at full width, each rank drawing only its shard of the
+   seeded weights, 8 requests through ``Scheduler`` on rank 0 (first-token
+   logits and every token against this process's tp=1 engine by the rank
+   rule, each rank's K1/K2/K3 launches and held bytes, the ranks' sampled
+   tokens equal, no rank compiling a kernel), the eager B=8 step, a cold
+   and an adopted 1500-token prefill; the store hop both ways (pages
+   bitwise equal); NCCL at world size 1 with the decode chunks replayed
+   as CUDA graphs (tokens equal to the plain engine's; tp=2 over NCCL only
+   with two cards); and ``serve --model tiny --tp 2 --dist-backend gloo``
+   as a subprocess (3 completions, both ranks' K1/K2/K3, nothing left
+   after SIGTERM);
 8. the ``kernels`` line: one JSON object with every kernel's numbers, each
    kernel's launches counted over the path that runs it, and its launches
    on the speculation path's timed runs (``spec_launches``), the lora path
-   (``lora_launches``), the cluster path (``cluster_launches``) and the moe
-   path (``moe_launches``).
+   (``lora_launches``), the cluster path (``cluster_launches``), the moe
+   path (``moe_launches``) and the tp path (``tp_launches``, summed over
+   its ranks); and the two tensor-parallel compositions (the second also
+   in its ``prefix_len`` form), timed on one rank's head shard.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -171,6 +192,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # atol = rtol, per dtype
+T_START = time.perf_counter()  # the smoke's start, for the phases' marks
 REPO_SOURCE = "infinistore_tpu_torch/ops/csrc/"
 TPU_SOURCE = "infinistore_tpu/ops/pallas_attention.py:"
 MODEL_PATH_KERNELS = ("paged_decode", "flash_causal", "flash_prefix",
@@ -2421,7 +2443,7 @@ MOE_MAX_RANK = 10
 
 
 def teacher_forced(torch, forward, params, cfg, dev, p, out, what,
-                   moe: bool = False) -> int:
+                   moe: bool = False, within_top: int = 0) -> int:
     """Each greedy token of ``out`` (after prompt ``p``) against the argmax
     of a teacher-forced cold prefill of prompt + output through
     ``forward``: fails unless every token is the argmax or within
@@ -2433,7 +2455,11 @@ def teacher_forced(torch, forward, params, cfg, dev, p, out, what,
     between the engine's paths and the dense forward, flips a top-2 expert
     choice where two router logits nearly tie, and the flip moves that
     position's logits by more than rounding does (the caller bounds how
-    many tokens may take this way)."""
+    many tokens may take this way).
+
+    ``within_top``: the rank rule of a path whose sums run in another
+    order (the tensor-parallel all-reduce): each token also within the
+    teacher-forced top ``within_top``."""
     with torch.no_grad():
         logits, _ = forward(params, cfg, torch.tensor([p + out], device=dev))
     rows = logits[0, len(p) - 1:len(p) - 1 + len(out)].float()
@@ -2455,6 +2481,9 @@ def teacher_forced(torch, forward, params, cfg, dev, p, out, what,
     else:
         check(gap <= TOL["bfloat16"], f"{what}: a greedy token is {gap:.4f} "
               f"(relative) below the teacher-forced argmax")
+        check(not within_top or rank < within_top,
+              f"{what}: a greedy token ranks {rank} (0 = the argmax) in the "
+              f"teacher-forced prefill, want < {within_top}")
     return near
 
 
@@ -2874,6 +2903,780 @@ def phase_moe(torch, ca, dev, card: str) -> dict:
     return launches
 
 
+# ---- the tp phase: tensor-parallel serving (ranks in spawned processes) ----
+
+TP_NEW = 32  # greedy new tokens per request on the tp serving path
+TP_WORLD_TIMEOUT_S = 600.0
+
+
+def _tp_entry(rank, world, init_file, backend, task, kw, out_dir):
+    """One rank of a spawned tensor-parallel world: joins it over
+    ``backend`` through a FileStore on ``cuda:(rank % cards)``, runs
+    ``task(rank, world, **kw)`` without autograd and writes its result (or
+    its traceback) to ``out_dir/rank<r>.pkl``."""
+    import pickle
+    import traceback
+
+    out = os.path.join(out_dir, f"rank{rank}.pkl")
+    try:
+        import torch
+
+        from infinistore_tpu_torch.parallel import initialize
+
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        initialize(init_method=f"file://{init_file}", world_size=world,
+                   rank=rank, backend=backend)
+        with torch.no_grad():
+            res = ("ok", task(rank, world, **kw))
+    except BaseException:  # noqa: BLE001 — the parent raises with it
+        res = ("error", traceback.format_exc())
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _tp_world(task, world: int, backend: str, **kw) -> list:
+    """Every rank's ``task(rank, world, **kw)`` in rank order, each rank a
+    process of its own (start method ``spawn``); a rank that fails fails
+    the call with its traceback, a world past ``TP_WORLD_TIMEOUT_S`` is
+    killed.  No process outlives the call."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="istpu-tp-world-")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_entry, args=(
+        r, world, os.path.join(tmp, "store"), backend, task, kw, tmp))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_WORLD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        check(not any(p.is_alive() for p in procs),
+              f"a {world}-rank {backend} world outlived "
+              f"{TP_WORLD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pkl")
+        check(os.path.exists(path), f"tp rank {r} exited "
+              f"{procs[r].exitcode} with no result")
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        check(status == "ok", f"tp rank {r} failed:\n{value}")
+        out.append(value)
+    return out
+
+
+def _pages_digest(t) -> str:
+    """sha256 of a tensor's bytes (whole pages, compared bitwise)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _tp_compositions(torch, rank: int, world: int, dev) -> dict:
+    """Each ``_tp`` composition on this rank's head shard of seeded bf16
+    inputs at Llama-3-8B's attention widths; the shards gathered on rank 0
+    and held against the plain version over all heads.  Each rank times
+    its own shard in turn (the other waits).  Returns, on rank 0, one
+    record per composition."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import bench_gpu
+    from infinistore_tpu_torch.models import attention as A
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    H, Hkv, D = 32, 8, 128
+    h, hk = H // world, Hkv // world
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    tol = TOL["bfloat16"]
+
+    def gather(x, dim):
+        x = x.cpu().contiguous()
+        parts = [torch.empty_like(x) for _ in range(world)] if rank == 0 \
+            else None
+        dist.gather(x, parts, dst=0)
+        return torch.cat(parts, dim=dim).to(dev) if rank == 0 else None
+
+    def in_turn(fn, reps):
+        ms = None
+        for r in range(world):
+            dist.barrier()
+            if r == rank:
+                ms = bench_gpu.median_device_ms(torch, fn, reps, flush)
+        dist.barrier()
+        vals = [None] * world
+        dist.all_gather_object(vals, ms)
+        return vals
+
+    def shard(x, dim, n):
+        return x.narrow(dim, rank * n, n).contiguous()
+
+    def launches(fn, kernels):
+        before = dict(ca.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = [ca.LAUNCHES[k] - before[k] for k in kernels]
+        vals = [None] * world
+        dist.all_gather_object(vals, counts)
+        return out, vals
+
+    def record(name, tpu_line, got, want, ms, plain_ms, lib_ms, n_bytes,
+               flops, counts):
+        if rank != 0:
+            return None
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        print(f"[tp] {name}: gathered over {world} ranks vs the plain "
+              f"version over all heads: max_abs_err={err:.3e} (atol=rtol="
+              f"{tol}) {'ok' if ok else 'MISMATCH'}; per rank launches "
+              f"{counts}, device ms {[round(m, 4) for m in ms]}, plain ms "
+              f"{[round(m, 4) for m in plain_ms]}, library ms "
+              f"{[None if m is None else round(m, 4) for m in lib_ms]}; "
+              f"bound of one rank's shard {b_ms:.4f} ms by {b_by}")
+        check(ok and math.isfinite(err), f"{name} disagrees with its plain "
+              f"version (max_abs_err={err})")
+        check(all(sum(c) > 0 for c in counts),
+              f"{name}: a rank launched no kernel {counts}")
+        return dict(name=name, route="cuda",
+                    source="infinistore_tpu_torch/models/attention.py",
+                    replaces="infinistore_tpu/models/attention.py:" + tpu_line,
+                    max_abs_err=err, ms=ms[0], plain_ms=plain_ms[0],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms[0],
+                    rank_ms=ms, check_launches=counts)
+
+    rec = {}
+    # K1 at the serving path's mixed batch (B=8, lengths 1..1500, a pad row)
+    q, cache, table, lens, real = bench_gpu.decode_inputs(
+        torch, np, dev, torch.bfloat16, "mixed")
+    qs, cs = shard(q, 1, h), shard(cache, 1, hk)
+
+    def k1():
+        return A.paged_decode_attention_tp(qs, cs, table, lens, world,
+                                           n_heads=H, n_kv_heads=Hkv)
+
+    got, counts = launches(k1, ["paged_decode"])
+    got = gather(got, 1)
+    want = ca.paged_decode_attention_xla(q, cache, table, lens) \
+        if rank == 0 else None
+    tokens = float(real.sum())
+    rec["paged_decode_tp"] = record(
+        "paged_decode_attention_tp", "367", got, want, in_turn(k1, 30),
+        in_turn(lambda: ca.paged_decode_attention_xla(qs, cs, table, lens),
+                5), [None] * world,
+        tokens * hk * D * 2 * 2 + 2 * qs.numel() * 2 + table.numel() * 4
+        + table.shape[0] * 4, 4.0 * h * D * tokens, counts)
+    del q, cache, qs, cs
+
+    def qkv(B, Sq, Sk, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+    def sdpa(q, k, v, **kw):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True, **kw).transpose(1, 2)
+
+    # K3 at 2048 tokens
+    S = 2048
+    q, k, v = qkv(1, S, S, 4)
+    qs, ks, vs = shard(q, 2, h), shard(k, 2, hk), shard(v, 2, hk)
+
+    def k3():
+        return A.flash_causal_attention_tp(qs, ks, vs, world, n_heads=H,
+                                           n_kv_heads=Hkv)
+
+    got, counts = launches(k3, ["flash_causal", "flash_prefix"])
+    got = gather(got, 2)
+    want = ca.causal_attention_xla(q, k, v) if rank == 0 else None
+    rec["flash_causal_tp"] = record(
+        "flash_causal_attention_tp", "83", got, want, in_turn(k3, 20),
+        in_turn(lambda: ca.causal_attention_xla(qs, ks, vs), 5),
+        in_turn(lambda: sdpa(qs, ks, vs, is_causal=True), 20),
+        2 * (2 * S * h * D + 2 * S * hk * D), 4.0 * h * D * S * (S + 1) / 2,
+        counts)
+    # K2 with a prefix_len: pad 1024, 700 valid, 512 new rows
+    pad, plen, Sq = 1024, 700, 512
+    q, k, v = qkv(1, Sq, pad + Sq, 5)
+    qs, ks, vs = shard(q, 2, h), shard(k, 2, hk), shard(v, 2, hk)
+    k_pos = torch.arange(pad + Sq, device=dev)
+    i = torch.arange(Sq, device=dev)[:, None]
+    mask = (k_pos[None] < plen) | ((k_pos[None] >= pad)
+                                   & (k_pos[None] - pad <= i))
+
+    def k2():
+        return A.flash_causal_attention_tp(
+            qs, ks, vs, world, q_offset=pad, prefix_pad=pad,
+            prefix_len=plen, n_heads=H, n_kv_heads=Hkv)
+
+    got, counts = launches(k2, ["flash_causal", "flash_prefix"])
+    got = gather(got, 2)
+    want = ca.causal_attention_xla(q, k, v, prefix_pad=pad,
+                                   prefix_len=plen) if rank == 0 else None
+    rec["flash_prefix_tp"] = record(
+        "flash_causal_attention_tp[prefix_len]", "83", got, want,
+        in_turn(k2, 20),
+        in_turn(lambda: ca.causal_attention_xla(
+            qs, ks, vs, prefix_pad=pad, prefix_len=plen), 5),
+        in_turn(lambda: sdpa(qs, ks, vs, attn_mask=mask), 20),
+        2 * (2 * Sq * h * D + 2 * (plen + Sq) * hk * D),
+        4.0 * h * D * (plen * Sq + Sq * (Sq + 1) / 2), counts)
+    # every composition at TINY's shard (H=2, H_kv=1 per rank at tp=2,
+    # head size 32: one KV head, one query group), as serve --tp 2 runs it
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    H, Hkv, D = 4, 2, 32
+    h, hk = H // world, Hkv // world
+    q, cache = rnd(8, H, D), rnd(2, Hkv, 128, 16, D)
+    table = torch.randperm(128, device=dev, generator=g)[:64].view(
+        8, 8).to(torch.int32)
+    lens = torch.randint(1, 129, (8,), device=dev, generator=g).to(
+        torch.int32)
+    got = gather(A.paged_decode_attention_tp(
+        shard(q, 1, h), shard(cache, 1, hk), table, lens, world,
+        n_heads=H, n_kv_heads=Hkv), 1)
+    errs = []
+    if rank == 0:
+        errs.append((got.float() - ca.paged_decode_attention_xla(
+            q, cache, table, lens).float()).abs().max().item())
+    for pad, plen, Sq in ((0, 0, 40), (32, 20, 8)):
+        q, k, v = rnd(1, Sq, H, D), rnd(1, pad + Sq, Hkv, D), rnd(
+            1, pad + Sq, Hkv, D)
+        kw = dict(q_offset=pad, prefix_pad=pad, prefix_len=plen) if pad \
+            else {}
+        got = gather(A.flash_causal_attention_tp(
+            shard(q, 2, h), shard(k, 2, hk), shard(v, 2, hk), world,
+            n_heads=H, n_kv_heads=Hkv, **kw), 2)
+        if rank == 0:
+            want = ca.causal_attention_xla(
+                q, k, v, **({"prefix_pad": pad, "prefix_len": plen} if pad
+                            else {}))
+            errs.append((got.float() - want.float()).abs().max().item())
+    if rank == 0:
+        print(f"[tp] K1, K3 and K2 compositions at TINY's shard (H=2, "
+              f"H_kv=1, D=32 per rank), gathered vs the plain version: "
+              f"max_abs_err {[f'{e:.3e}' for e in errs]} (atol={tol})")
+        check(all(e <= tol for e in errs), "a composition at TINY's shard "
+              "disagrees with its plain version")
+    del flush
+    return rec
+
+
+def _tp_serve_task(rank: int, world: int, reqs, p_cold, p1, p1_digest, p2,
+                   store_port: int) -> dict:
+    """The tp phase's two-rank world over gloo on one card: the
+    compositions, then Llama-3-8B (every rank drawing only its shard of the
+    seeded weights) serving ``reqs`` through ``Scheduler`` on rank 0, its
+    first-token logits, the eager decode step and a cold prefill; then an
+    engine on the native store adopting ``p1`` (pages gathered over the
+    ranks, their digest against ``p1_digest``) and pushing ``p2``.
+    Returns rank 0's numbers."""
+    import torch
+
+    from infinistore_tpu_torch import lib as ist
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import LLAMA3_8B, init_params
+    from infinistore_tpu_torch.ops import build
+    from infinistore_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    out = {"compositions": _tp_compositions(torch, rank, world, dev),
+           "nvcc_runs_at_start": build.NVCC_RUNS}
+    cfg = LLAMA3_8B
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, tp_rank=rank, tp=world)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    # the draw's device peak above what the rank held before it, and the
+    # shard's bytes: no rank holds the whole model on the card
+    out["init_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    out["shard_bytes"] = sum(
+        t.numel() * t.element_size() for t in [
+            params["embed"], params["lm_head"], params["ln_out"],
+            *params["layers"].values()])
+    mesh = make_mesh(tp=world)
+    pc = PagedCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.head_dim, n_blocks=1024,
+                          block_tokens=16, dtype=cfg.dtype)
+    engine = InferenceEngine(params, cfg, pc, mesh=mesh, device=dev,
+                             prefill_chunk=512)
+    if rank != 0:
+        engine.follow()
+    else:
+        try:
+            out.update(_tp_leader_serving(torch, engine, reqs, p_cold))
+        finally:
+            engine.shutdown_followers()
+    del engine
+    torch.cuda.empty_cache()
+    conn = None
+    if rank == 0:
+        conn = ist.InfinityConnection(ist.ClientConfig(
+            host_addr="127.0.0.1", service_port=store_port,
+            connection_type=ist.TYPE_SHM, log_level="warning"))
+        conn.connect()
+    b = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                        mesh=mesh, device=dev, prefill_chunk=512, conn=conn,
+                        kv_quant=None, store_durability="strict",
+                        model_id="tp-smoke")
+    if rank != 0:
+        b.follow()
+        return out
+    try:
+        out.update(_tp_leader_store(torch, b, p1, p1_digest, p2))
+    finally:
+        b.shutdown_followers()
+        conn.close()
+    return out
+
+
+def _tp_leader_serving(torch, engine, reqs, p_cold) -> dict:
+    """Rank 0's serving run (see ``_tp_serve_task``)."""
+    from infinistore_tpu_torch.engine import Scheduler
+    from infinistore_tpu_torch.utils.metrics import MetricsRegistry
+
+    out = {}
+    engine.release(engine.prefill(list(range(1, 41))))  # warm-up
+    before = engine.tp_report()
+    sched = Scheduler(engine, max_batch=8, metrics=MetricsRegistry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [sched.submit(p, TP_NEW) for p in reqs]
+    done = {}
+    while sched.has_work:
+        for r in sched.step():
+            done[r.req_id] = r
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    after = engine.tp_report()
+    out["outputs"] = [done[i].output for i in ids]
+    out["rank_launches"] = [
+        {k: a["kernel_launches"][k] - b["kernel_launches"][k]
+         for k in a["kernel_launches"]} for a, b in zip(after, before)]
+    out["held_bytes"] = [a["held_bytes"] for a in after]
+    out["ranks_agree"] = all(a["tokens"] == after[0]["tokens"]
+                             for a in after)
+    out["backend"] = after[0]["backend"]
+    out["cuda_graphs"] = [a["cuda_graphs"] for a in after]
+    out["nvcc_runs"] = [a["nvcc_runs"] for a in after]
+    # the first request's first-token logits, and the B=8 eager decode step
+    st = engine.prefill(reqs[0])
+    out["first_logits"] = st.last_logits.float().cpu()
+    states = [st] + [engine.prefill(p) for p in reqs[1:]]
+    engine.decode_batch(states, 2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.decode_batch(states, 16)
+    torch.cuda.synchronize()
+    out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / 16
+    for s in states:
+        engine.release(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.release(engine.prefill(p_cold))
+    torch.cuda.synchronize()
+    out["cold_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _tp_leader_store(torch, b, p1, p1_digest, p2) -> dict:
+    """Rank 0's store hop (see ``_tp_serve_task``)."""
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1 = b.prefill(p1)
+    torch.cuda.synchronize()
+    out["adopt_ms"] = (time.perf_counter() - t0) * 1e3
+    out["p1_store_chunks"] = s1.store_chunks
+    n1 = (len(p1) - 1) // b.pc.block_tokens
+    out["p1_pages_equal"] = _pages_digest(
+        b._op("gather_pages", s1.block_ids[:n1])) == p1_digest
+    out["p1_tokens"] = b.decode(s1, 16)
+    s2 = b.prefill(p2)
+    b.store_flush()
+    n2 = (len(p2) - 1) // b.pc.block_tokens
+    out["p2_digest"] = _pages_digest(b._op("gather_pages",
+                                           s2.block_ids[:n2]))
+    out["p2_tokens"] = b.decode(s2, 16)
+    return out
+
+
+def _tp_nccl_task(rank: int, world: int, prompts) -> dict:
+    """Tensor parallelism over NCCL with the decode chunks replayed as CUDA
+    graphs (the collectives captured inside): Llama-3-8B through a mesh
+    engine and, on rank 0, the plain single-rank engine on the same weights;
+    returns both engines' greedy tokens (rank 0)."""
+    import torch
+
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import LLAMA3_8B, init_params
+    from infinistore_tpu_torch.parallel import make_mesh, shard_params
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    cfg = LLAMA3_8B
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mesh = make_mesh(tp=world)
+    pc = PagedCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.head_dim, n_blocks=512,
+                          block_tokens=16, dtype=cfg.dtype)
+    full = init_params(cfg, gen, dev) if rank == 0 else None
+    params = shard_params(full, mesh) if rank == 0 else init_params(
+        cfg, gen, dev, tp_rank=rank, tp=world)
+    eng = InferenceEngine(params, cfg, pc, mesh=mesh, device=dev,
+                          prefill_chunk=512)
+    if rank != 0:
+        eng.follow()
+        return {}
+    try:
+        states = [eng.prefill(p) for p in prompts]
+        got = eng.decode_batch(states, TP_NEW)
+        rep = eng.tp_report()
+        res = {"tp": got, "replays": dict(eng.graph_replays),
+               "captures": dict(eng.graph_captures),
+               "backend": rep[0]["backend"],
+               "cuda_graphs": [r["cuda_graphs"] for r in rep]}
+    finally:
+        eng.shutdown_followers()
+    del eng
+    plain = InferenceEngine(full, cfg, pc, device=dev, prefill_chunk=512)
+    res["plain"] = plain.decode_batch([plain.prefill(p) for p in prompts],
+                                      TP_NEW)
+    res["plain_replays"] = dict(plain.graph_replays)
+    return res
+
+
+def _tp_serve_cli_start():
+    """Start ``python -m infinistore_tpu_torch.serve --model tiny --tp 2
+    --dist-backend gloo`` as a subprocess; returns (process, port, start
+    time).  Its SLO targets sit far above a gloo group's eager steps, so
+    the admission plane never sheds this correctness leg."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "infinistore_tpu_torch.serve", "--model",
+         "tiny", "--tp", "2", "--dist-backend", "gloo", "--port", str(port),
+         "--n-blocks", "256", "--prefill-chunk", "32", "--kv-quant", "none",
+         "--slo-ttft", "60", "--slo-tpot", "10", "--log-level", "warning"],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, port, t0
+
+
+def _tp_serve_cli(torch, card: str, proc, port: int, t0: float) -> None:
+    """The ``serve --tp 2`` subprocess ``_tp_serve_cli_start`` started:
+    three greedy completions, each 200; the tokens within the rank rule
+    against a tp=1 engine on the same weights; both ranks' K1, K2 and K3
+    launches from ``/debug/engine``; SIGTERM leaves no rank process
+    behind."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import prefill_forward
+    from infinistore_tpu_torch.serve import load_model
+
+    pids = []
+    try:
+        deadline = time.time() + 180
+        while True:
+            try:
+                _http(port, "GET", "/healthz")
+                break
+            except OSError:
+                check(proc.poll() is None, "serve --tp 2 exited early")
+                check(time.time() < deadline, "serve --tp 2 never came up")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        g = torch.Generator().manual_seed(77)
+        prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+                   for n in (40, 72, 100)]
+        outs = []
+        for p in prompts:
+            status, body = _http(port, "POST", "/v1/completions", {
+                "prompt": p, "max_tokens": 16, "temperature": 0})
+            check(status == 200, f"serve --tp 2 answered {status}: {body}")
+            outs.append(json.loads(body)["choices"][0]["token_ids"])
+        status, dbg = _http(port, "GET", "/debug/engine?limit=0")
+        ranks = json.loads(dbg)["tp"]["ranks"]
+        pids = [r["pid"] for r in ranks]
+        print(f"[tp] serve --tp 2 (gloo, tiny): up in {up_s:.1f} s, 3 "
+              f"completions 200; per rank kernel launches "
+              f"{[r['kernel_launches'] for r in ranks]}, cuda_graphs "
+              f"{[r['cuda_graphs'] for r in ranks]}")
+        for r in ranks:
+            check(all(r["kernel_launches"][k] > 0 for k in
+                      ("paged_decode", "flash_causal", "flash_prefix")),
+                  f"serve --tp 2 rank {r['rank']} did not launch K1, K2 and "
+                  f"K3: {r['kernel_launches']}")
+        check(ranks[0]["tokens"] == ranks[1]["tokens"],
+              "serve --tp 2: the ranks sampled different tokens")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    print(f"[tp] serve --tp 2 exited {code} on SIGTERM; rank processes "
+          f"left: {left}")
+    check(not left, f"rank processes {left} outlived serve --tp 2")
+    dev = torch.device("cuda")
+    cfg, params, _ = load_model("tiny", dev)
+    ref = InferenceEngine(params, cfg, PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, n_blocks=256, block_tokens=16,
+        dtype=cfg.dtype), prefill_chunk=32, kv_quant=None)
+    for p, o in zip(prompts, outs):
+        rank_rule(torch, prefill_forward, params, cfg, dev, p, o,
+                  ref.decode(ref.prefill(p), 16),
+                  f"[tp] serve --tp 2 vs a tp=1 engine, {len(p)}-token "
+                  f"prompt")
+
+
+def rank_rule(torch, forward, params, cfg, dev, p, got, want,
+              what: str) -> None:
+    """The rank rule for a bf16 path whose sums run in another order than
+    the reference's: each token of ``got`` that differs from ``want`` (the
+    reference path's own tokens after prompt ``p``) ranks within the top 2
+    of a teacher-forced cold prefill of prompt + ``got`` through
+    ``forward``, its logit within ``TOL["bfloat16"]`` (relative) of the
+    best there.  Ranks count the distinct bf16 logit values above the
+    token's: tokens whose logits are equal in bf16 share a rank, since the
+    teacher-forced prefill cannot order them (TINY's random logits tie so;
+    the top 4 in f32 are printed beside them)."""
+    with torch.no_grad():
+        logits, _ = forward(params, cfg, torch.tensor([p + got], device=dev))
+    rows = logits[0, len(p) - 1:len(p) - 1 + len(got)].float()
+    diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+    ranks, gaps = [], []
+    p32 = {k: (v.float() if torch.is_tensor(v) else
+               {kk: vv.float() for kk, vv in v.items()})
+           for k, v in params.items()}
+    with torch.no_grad():
+        l32, _ = forward(p32, dataclasses.replace(cfg, dtype=torch.float32),
+                         torch.tensor([p + got], device=dev))
+    rows32 = l32[0, len(p) - 1:len(p) - 1 + len(got)]
+    for j in diff:
+        row, mine = rows[j], rows[j, got[j]]
+        ranks.append(int((row.unique() > mine).sum()))
+        gaps.append(((row.max() - mine) / row.max().abs()).item())
+        top = torch.topk(row, 4)
+        top32 = torch.topk(rows32[j], 4)
+        print(f"{what}: position {j}: served {got[j]}, reference path "
+              f"{want[j]}; teacher-forced top 4 {top.indices.tolist()} "
+              f"{[round(v, 5) for v in top.values.tolist()]}; in f32 "
+              f"{top32.indices.tolist()} "
+              f"{[round(v, 5) for v in top32.values.tolist()]}")
+    print(f"{what}: {len(got) - len(diff)}/{len(got)} tokens equal; the "
+          f"differing ones rank {ranks} in the teacher-forced prefill, "
+          f"relative gaps {[round(g, 4) for g in gaps]}")
+    check(all(r < 2 for r in ranks) and all(g <= TOL["bfloat16"]
+                                            for g in gaps),
+          f"{what}: a differing token breaks the rank rule (top 2, gap <= "
+          f"{TOL['bfloat16']})")
+
+
+def phase_tp(torch, ca, dev, params, cfg, pc, card: str,
+             store_port: int) -> dict:
+    """Tensor-parallel serving on the card (module docstring, phase 8);
+    returns the composition records and the tp serving path's launches
+    summed over its ranks."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import prefill_forward
+
+    t_phase = time.perf_counter()
+    print(f"[tp] backend gloo: two ranks share cuda:0 and their collectives "
+          f"cross the host, so the phase's times are no tensor-parallel "
+          f"speed (the smoke at {time.perf_counter() - T_START:.1f} s)")
+    rng = torch.Generator().manual_seed(1212)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    shared = prompt(512)
+    reqs = [prompt(64), prompt(200), shared + prompt(300),
+            shared + prompt(100), prompt(1500), prompt(350), prompt(1000),
+            prompt(130)]
+    p_cold, p1, p2 = prompt(1500), prompt(1500), prompt(1500)
+    # engine A (tp=1, this process) pushes p1 for the tp group to adopt
+    from infinistore_tpu_torch import lib as ist
+
+    conn = ist.InfinityConnection(ist.ClientConfig(
+        host_addr="127.0.0.1", service_port=store_port,
+        connection_type=ist.TYPE_SHM, log_level="warning"))
+    conn.connect()
+    a = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                        conn=conn, kv_quant=None, store_durability="strict",
+                        model_id="tp-smoke", prefill_chunk=512)
+    sa = a.prefill(p1)
+    n1 = (len(p1) - 1) // pc.block_tokens
+    p1_digest = _pages_digest(a.cache[:, :, :, torch.tensor(
+        sa.block_ids[:n1], device=dev)])
+    a_tokens = a.decode(sa, 16)
+    t_world = time.perf_counter()
+    res = _tp_world(_tp_serve_task, 2, "gloo", reqs=reqs, p_cold=p_cold,
+                    p1=p1, p1_digest=p1_digest, p2=p2,
+                    store_port=store_port)[0]
+    world_s = time.perf_counter() - t_world
+    gib = 2 ** 30
+    full = sum(t.numel() * t.element_size() for t in [
+        params["embed"], params["lm_head"], params["ln_out"],
+        *params["layers"].values()])
+    print(f"[tp] the two-rank world ran in {world_s:.1f} s; rank 0 drew its "
+          f"{res['shard_bytes'] / gib:.2f} GiB shard of the 8B weights in "
+          f"{res['init_s']:.1f} s at a device peak of "
+          f"{res['init_peak'] / gib:.2f} GiB (the whole model: "
+          f"{full / gib:.2f} GiB); backend {res['backend']}, CUDA graphs per "
+          f"rank {res['cuda_graphs']}, nvcc runs per rank {res['nvcc_runs']}")
+    check(res["init_peak"] < full, "a rank's weight draw held the whole "
+          "model on the card")
+    check(res["nvcc_runs"] == [0, 0],
+          f"a rank compiled kernels the leader had built: {res['nvcc_runs']}")
+    # full width at tp=2 against tp=1 on the same weights
+    mib = 2 ** 20
+    print(f"[tp] Llama-3-8B tp=2: 8 requests x {TP_NEW} greedy tokens in "
+          f"{res['serve_s']:.2f} s; per rank launches "
+          f"{res['rank_launches']}; held_bytes per rank "
+          f"{[round(b / mib, 1) for b in res['held_bytes']]} MiB; ranks "
+          f"agree on every sampled token: {res['ranks_agree']}")
+    check(res["ranks_agree"], "the tp ranks sampled different tokens")
+    for r, counts in enumerate(res["rank_launches"]):
+        check(all(counts[k] > 0 for k in ("paged_decode", "flash_causal",
+                                          "flash_prefix")),
+              f"tp rank {r} did not launch K1, K2 and K3: {counts}")
+    ref = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                          prefill_chunk=512)
+    st = ref.prefill(reqs[0])
+    logits_agree(torch, res["first_logits"].to(dev), st.last_logits,
+                 "[tp] first-token logits, tp=2 vs tp=1")
+    ref.release(st)
+    for p, o in zip(reqs, res["outputs"]):
+        check(len(o) == TP_NEW, f"a tp request returned {len(o)} tokens")
+        teacher_forced(torch, prefill_forward, params, cfg, dev, p, o,
+                       f"[tp] tp=2 tokens, {len(p)}-token prompt",
+                       within_top=2)
+    print(f"[tp] tp=2 (gloo, eager, one card): B=8 decode step "
+          f"{res['decode_step_ms']:.3f} ms; cold 1500-token prefill "
+          f"{res['cold_prefill_ms']:.3f} ms; adopted 1500-token prefill "
+          f"(93 chunks from the native store) {res['adopt_ms']:.3f} ms "
+          f"({card})")
+    # the store hop both ways, whole pages bitwise
+    check(res["p1_store_chunks"] == n1 and res["p1_pages_equal"],
+          f"tp=2 adopted {res['p1_store_chunks']} chunks of p1 (want {n1}), "
+          f"pages bitwise equal to A's: {res['p1_pages_equal']}")
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p1,
+                   res["p1_tokens"], "[tp] tp=2 tokens after adopting A's "
+                   "pages", within_top=2)
+    c = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                        conn=conn, kv_quant=None, model_id="tp-smoke",
+                        prefill_chunk=512)
+    sc = c.prefill(p2)
+    n2 = (len(p2) - 1) // pc.block_tokens
+    check(sc.store_chunks == n2,
+          f"C adopted {sc.store_chunks} of the tp=2 push's {n2} chunks")
+    c_same = _pages_digest(c.cache[:, :, :, torch.tensor(
+        sc.block_ids[:n2], device=dev)]) == res["p2_digest"]
+    print(f"[tp] store hop: the tp=2 group adopted A's {n1} chunks, pages "
+          f"bitwise equal {res['p1_pages_equal']}; tp=1 C adopted the tp=2 "
+          f"group's {n2} chunks, pages bitwise equal {c_same}; A's tokens "
+          f"{a_tokens[:6]}..., the group's {res['p1_tokens'][:6]}...")
+    check(c_same, "C's adopted pages differ from the pages the tp=2 group "
+          "pushed")
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p2,
+                   res["p2_tokens"], "[tp] tp=2 tokens of its pushed prompt",
+                   within_top=2)
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p2,
+                   c.decode(sc, 16), "[tp] tp=1 C's tokens after adopting "
+                   "the group's pages", within_top=2)
+    conn.close()
+    del a, c, ref, sa, sc, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    # captured collectives: NCCL at world size 1 (and 2 where the machine
+    # has two cards) with the decode chunks replayed as CUDA graphs, while
+    # the serve --tp 2 subprocess comes up (both legs check results only)
+    cli = _tp_serve_cli_start()
+    try:
+        _tp_nccl_legs(torch, params, cfg, dev, [reqs[0], reqs[1], reqs[5],
+                                                reqs[4]])
+    except BaseException:
+        cli[0].kill()
+        cli[0].wait()
+        raise
+    _tp_serve_cli(torch, card, *cli)
+    out = {"compositions": res["compositions"],
+           "launches": {k: sum(r[k] for r in res["rank_launches"])
+                        for k in res["rank_launches"][0]}}
+    print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _tp_nccl_legs(torch, params, cfg, dev, prompts) -> None:
+    """NCCL with the decode chunks as CUDA graphs: at world size 1, tokens
+    equal to the plain engine's; at 2 (with two cards), the rank rule."""
+    from infinistore_tpu_torch.models import prefill_forward
+
+    n_cards = torch.cuda.device_count()
+    for world in (1, 2):
+        if world > n_cards:
+            print(f"[tp] tp={world} over nccl with CUDA graphs: not run, the "
+                  f"machine has {n_cards} card(s)")
+            continue
+        t0 = time.perf_counter()
+        r = _tp_world(_tp_nccl_task, world, "nccl", prompts=prompts)[0]
+        same = r["tp"] == r["plain"]
+        print(f"[tp] tp={world} over {r['backend']} with CUDA graphs (per "
+              f"rank {r['cuda_graphs']}): decode replays {r['replays']}, "
+              f"captures {r['captures']}; plain engine replays "
+              f"{r['plain_replays']}; tokens equal to the plain single-rank "
+              f"engine's: {same} ({time.perf_counter() - t0:.1f} s)")
+        check(r["backend"] == "nccl" and all(r["cuda_graphs"])
+              and r["replays"]["decode"] > 0,
+              f"tp={world} over nccl replayed no decode graph: {r}")
+        if world == 1:
+            check(same, "world-size-1 NCCL graphs gave other tokens than the "
+                  "plain engine")
+        else:
+            for p, o in zip(prompts, r["tp"]):
+                teacher_forced(torch, prefill_forward, params, cfg, dev, p, o,
+                               "[tp] tp=2 nccl tokens", within_top=2)
+
+
 def main() -> int:
     import torch
 
@@ -2929,6 +3732,10 @@ def main() -> int:
                                           {"python": port, "native": nport})
                 lora_launches = phase_lora(torch, ca, dev, params, cfg, pc,
                                            card, nport)
+                # the store and lora phases' engines hold reference cycles
+                gc.collect()
+                torch.cuda.empty_cache()
+                tp = phase_tp(torch, ca, dev, params, cfg, pc, card, nport)
             finally:
                 _stop(nstore)
             cluster_launches = phase_cluster(torch, ca, dev, params, cfg, pc,
@@ -2962,7 +3769,19 @@ def main() -> int:
         "lora_launches": lora_launches.get(key, 0),
         "cluster_launches": cluster_launches.get(key, 0),
         "moe_launches": moe_launches.get(key, 0),
+        "tp_launches": tp["launches"].get(key, 0),
     } for key, r in rec.items()]
+    # the tensor-parallel compositions: each rank's K1 (K3, K2) on its head
+    # shard; launches summed over the tp serving path's two ranks
+    tpl = tp["launches"]
+    for key, r in tp["compositions"].items():
+        n = (tpl["paged_decode"] if key == "paged_decode_tp"
+             else tpl["flash_causal"] + tpl["flash_prefix"])
+        kernels.append({
+            k: r[k] for k in ("name", "route", "source", "replaces",
+                              "max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")})
+        kernels[-1].update(launches=n, tp_launches=n, rank_ms=r["rank_ms"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1219,6 +1219,17 @@ class ClusterTransferEngine:
 
     # -- device-side halves (endpoint-independent) --
 
+    @property
+    def tp_pages(self):
+        """A tensor-parallel engine's page hook (``KVTransferEngine.
+        tp_pages``), held by the template engine that gathers and
+        scatters for every node."""
+        return self._tpl.tp_pages
+
+    @tp_pages.setter
+    def tp_pages(self, hook) -> None:
+        self._tpl.tp_pages = hook
+
     def gather_pages(self, cache, block_ids):
         return self._tpl.gather_pages(cache, block_ids)
 

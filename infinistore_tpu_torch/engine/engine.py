@@ -68,18 +68,37 @@ The store is one connection or a ``cluster.RoutedStorePool``: then every
 store hop routes per chunk over the consistent-hash ring
 (``cluster.ClusterTransferEngine``), with per-node breakers and hot-prefix
 replication.
+
+Tensor-parallel serving (``mesh=``, a ``parallel.make_mesh`` mesh with a
+``tp`` axis) maps the reference's single controller onto one process per
+rank.  The tp group's rank 0 leads: it holds the page bookkeeping, the
+prefix cache, the store connection and (in ``serve``) the ``Scheduler``.
+Every rank holds its Megatron shard of the weights and its head shard of
+the paged cache ``[L, 2, H_kv/tp, n_blocks, T, D]``.  Each device step is a
+named op (the ``_op_*`` methods): the leader broadcasts its name and host
+arguments, then every rank runs it, the model's collectives inside
+(``models/llama.py`` with ``tp=``); the other ranks run ``follow()``, which
+waits for the leader's ops and runs them, and nothing else.  The logits
+are all-gathered, so every rank samples the same token from the same bits.
+The store holds whole pages: a push gathers every rank's head slice on the
+leader and packs it as a tp=1 engine does; a load scatters each rank its
+slice.  Over NCCL the graphs capture the collectives (every rank captures
+a key at the same op); over gloo, whose collectives run on the host, the
+graph bodies run eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import inspect
 import math
+import os
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -108,6 +127,8 @@ from ..models.llama import (
     verify_forward,
 )
 from ..ops import cuda_attention as ca
+from ..parallel.distributed import TPGroup
+from ..parallel.sharding import check_tp_heads, shard_params
 from .. import usage as _usage
 from ..utils import metrics as _metrics
 from ..utils import tracing
@@ -437,6 +458,33 @@ class PartialPrefill:
     local_chunks: int = 0
     store_chunks: int = 0
     store_load_s: float = 0.0
+    pid: int = 0  # names its prefix buffer on tensor-parallel followers
+
+
+def _tp_unsupported(what: str) -> NotImplementedError:
+    """The error of a path tensor parallelism does not take yet
+    (speculation, LoRA), naming the ROADMAP.md item it waits for."""
+    return NotImplementedError(
+        f"{what} under tensor parallelism is not ported yet (ROADMAP.md "
+        f"queue 1 item 5b)")
+
+
+class _TPPages:
+    """The store hop's device halves on a tensor-parallel leader
+    (``KVTransferEngine.tp_pages``): a push gathers every rank's head slice
+    of the pages, a load scatters each rank its slice, each as an op of
+    the leader's engine."""
+
+    def __init__(self, engine: "InferenceEngine"):
+        self._engine = engine
+
+    def gather(self, cache: torch.Tensor, block_ids) -> torch.Tensor:
+        return self._engine._op("gather_pages", list(block_ids))
+
+    def scatter(self, cache: torch.Tensor, block_ids,
+                pages: torch.Tensor) -> torch.Tensor:
+        self._engine._op("scatter_pages", list(block_ids), pages=pages)
+        return self._engine.cache
 
 
 class InferenceEngine:
@@ -456,6 +504,9 @@ class InferenceEngine:
         prefill_fn=None,
         decode_fn=None,
         lora=None,
+        mesh=None,
+        param_specs=None,
+        pallas_tp: bool = False,
     ):
         """``params``: the model's weights (``models.llama.init_params`` or
         ``models.convert.params_from_jax``), already on ``device``.
@@ -500,7 +551,49 @@ class InferenceEngine:
         ``lora``: a ``models.lora.LoraBank`` enables multi-adapter serving:
         ``prefill(..., adapter_id=)`` / ``Scheduler.submit(adapter_id=)``
         pick an adapter, and one batch mixes them.  Built-in Llama family
-        only (with a custom family it raises, as in the reference)."""
+        only (with a custom family it raises, as in the reference).
+
+        ``mesh``: a ``parallel.make_mesh`` mesh with a ``tp`` axis makes
+        this rank's engine one of a tensor-parallel group (module
+        docstring): ``params`` are the whole model, sharded here
+        (``param_specs``, default ``parallel.llama_inference_specs``), or
+        this rank's shard already; the cache holds this rank's KV heads.
+        Every rank builds its engine with the same arguments; the group's
+        rank 0 passes ``conn`` and is driven, the others call ``follow()``.
+        Built-in Llama family only; LoRA and speculation raise.
+        ``pallas_tp`` is kept for the reference's signature: its kernels
+        need a ``shard_map`` to run on shards, the CUDA kernels run on each
+        rank's head shard either way."""
+        self._tp = None
+        if mesh is not None:
+            if prefill_fn or decode_fn or verify_fn:
+                raise ValueError("mesh serving supports the built-in dense "
+                                 "families (the MoE family scales by expert "
+                                 "parallelism, not ported yet)")
+            if lora is not None:
+                raise _tp_unsupported("lora")
+            tp = TPGroup.from_mesh(mesh)
+            check_tp_heads(cfg.n_heads, cfg.n_kv_heads, tp.size)
+            if params["lm_head"].shape[-1] == cfg.vocab_size and tp.size > 1:
+                params = shard_params(params, mesh, param_specs)
+            elif params["lm_head"].shape[-1] * tp.size != cfg.vocab_size:
+                raise ValueError(
+                    f"params' lm_head holds {params['lm_head'].shape[-1]} "
+                    f"of {cfg.vocab_size} columns: neither the whole model "
+                    f"nor a tp={tp.size} shard")
+            if not tp.is_leader and conn is not None:
+                raise ValueError("only the tp group's leader holds a store "
+                                 "connection")
+            self._tp = tp
+        # a group whose collectives run on the host cannot be captured
+        self._capture_ok = self._tp is None or not self._tp.host_staged
+        self._op_lock = threading.Lock()
+        self._next_pid = 0
+        # followers: each partial prefill's prefix buffer, by pid
+        self._tp_bufs: Dict[int, torch.Tensor] = {}
+        # the tokens of the last decode chunks this rank sampled (the ranks
+        # agree on every one)
+        self.rank_tokens: "deque" = deque(maxlen=64)
         if lora is not None and (prefill_fn or decode_fn or verify_fn):
             raise ValueError(
                 "LoRA composes the built-in Llama family; custom families "
@@ -517,7 +610,11 @@ class InferenceEngine:
         self.model_id = model_id
         self.params = params
         self.lora = lora
-        self.cache = init_cache(pc, self.device)
+        # this rank's KV heads (all of them without a mesh)
+        self._hkv = pc.n_kv_heads // (1 if self._tp is None
+                                      else self._tp.size)
+        self.cache = init_cache(dataclasses.replace(pc, n_kv_heads=self._hkv),
+                                self.device)
         self.alloc = BlockAllocator(pc.n_blocks)
         # automatic prefix caching: complete-chunk pages are content-
         # addressed by their prefix-commitment key and shared across
@@ -529,6 +626,9 @@ class InferenceEngine:
         # and hot-prefix replication
         self.transfer = None if conn is None else transfer_for(
             conn, pc, quant=kv_quant, device=self.device)
+        if self.transfer is not None and self._tp is not None:
+            # the store holds whole pages (``pc``'s every head)
+            self.transfer.tp_pages = _TPPages(self)
         if store_durability not in ("strict", "relaxed"):
             raise ValueError(
                 f"store_durability must be 'strict' or 'relaxed', "
@@ -593,10 +693,13 @@ class InferenceEngine:
         self._vocab_hash = (torch.arange(cfg.vocab_size, dtype=torch.long,
                                          device=self.device)
                             * 0x9E3779B9) & _M32
-        # the model family's forwards, called with keywords
+        # the model family's forwards, called with keywords (with the tp
+        # group under a mesh: the built-in family's collectives)
+        tpkw = {} if self._tp is None else {"tp": self._tp}
         self._prefill = functools.partial(prefill_fn or prefill_forward,
-                                          cfg=cfg)
-        self._decode = functools.partial(decode_fn or decode_forward, cfg=cfg)
+                                          cfg=cfg, **tpkw)
+        self._decode = functools.partial(decode_fn or decode_forward, cfg=cfg,
+                                         **tpkw)
         # the speculative verify step and its last-row-only form (the
         # reference's ``_verify_jit`` / ``_verify_last_jit``): a custom
         # family must bring its own, as binding llama's verify to foreign
@@ -648,6 +751,140 @@ class InferenceEngine:
 
     def _tokens(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.int32, device=self.device)
+
+    # ---- tensor parallelism: the leader's ops and the followers' loop ----
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self._tp is None else self._tp.size
+
+    def _op(self, name: str, *args, **leader_kw):
+        """Run the device op ``_op_<name>(*args)`` on this engine and, on a
+        tensor-parallel leader, on every follower first told its name and
+        ``args`` (host values; a ``PartialPrefill`` travels without its
+        prefix buffer, which each rank keeps).  ``leader_kw`` reach the
+        leader's call only (tensors the op sends the others itself).  Ops
+        are serialized: their collectives pair up in order on every
+        rank."""
+        fn = getattr(self, "_op_" + name)
+        if self._tp is None:
+            return fn(*args, **leader_kw)
+        if not self._tp.is_leader:
+            raise RuntimeError("a tensor-parallel follower runs only the "
+                               "ops its leader sends (follow())")
+        with self._op_lock:
+            self._tp.send_op((name, tuple(
+                dataclasses.replace(a, buf=None)
+                if isinstance(a, PartialPrefill) else a for a in args)))
+            return fn(*args, **leader_kw)
+
+    def follow(self) -> None:
+        """A tensor-parallel follower's loop: run each op the leader sends,
+        on the engine's stream, until the leader shuts the group down
+        (``shutdown_followers``).  A leader that dies makes the wait
+        raise."""
+        if self._tp is None or self._tp.is_leader:
+            raise RuntimeError("follow() runs on a tensor-parallel "
+                               "follower (a mesh rank other than tp 0)")
+        while True:
+            name, args = self._tp.recv_op()
+            if name == "shutdown":
+                return
+            pp = args[0] if args and isinstance(args[0], PartialPrefill) \
+                else None
+            if pp is not None:
+                pp.buf = self._tp_bufs.pop(pp.pid, None)
+            with self._on_engine_stream():
+                getattr(self, "_op_" + name)(*args)
+            if pp is not None and pp.buf is not None \
+                    and pp.off < len(pp.padded):
+                self._tp_bufs[pp.pid] = pp.buf
+
+    def shutdown_followers(self) -> None:
+        """On a tensor-parallel leader: end every follower's ``follow()``.
+        A no-op elsewhere."""
+        if self._tp is not None and self._tp.is_leader:
+            with self._op_lock:
+                self._tp.send_op(("shutdown", ()))
+
+    def tp_report(self) -> Optional[List[dict]]:
+        """Every rank's ``rank_report()`` in rank order (None without a
+        mesh): its held bytes, kernel launches and last sampled tokens."""
+        if self._tp is None:
+            return None
+        return self._op("report")
+
+    def rank_report(self) -> dict:
+        """This rank's numbers, as ``tp_report`` gathers them."""
+        from ..ops import build
+
+        return {
+            "rank": self._tp.rank if self._tp else 0,
+            "pid": os.getpid(),
+            "backend": self._tp.backend if self._tp else None,
+            "cuda_graphs": self._capture_ok and self.device.type == "cuda",
+            "held_bytes": self.held_bytes(),
+            "kernel_launches": dict(ca.LAUNCHES),
+            "nvcc_runs": build.NVCC_RUNS,
+            "tokens": [list(t) for t in self.rank_tokens],
+        }
+
+    def _op_report(self):
+        return self._tp.gather_objects(self.rank_report())
+
+    def _op_prefill_begin(self, pp: "PartialPrefill") -> None:
+        """A prefill's prefix buffer from the pages already in the cache:
+        exact for a single forward, else bucketed at a power of two."""
+        P = pp.reused * self.pc.block_tokens
+        prefix_kv = _read_prefix_kv(self.cache, pp.block_ids[:pp.reused]) \
+            if pp.reused else None  # [L, 2, 1, n*T, H, D]
+        if pp.single or prefix_kv is None:
+            pp.buf = prefix_kv  # exact: no slack, K3 at q_offset=P
+        else:
+            pp.buf = _pad_seq_axis(prefix_kv, _round_up_pow2(P, pp.C))
+
+    def _op_prefill_drop(self, pid: int) -> None:
+        self._tp_bufs.pop(pid, None)
+
+    def _op_gather_pages(self, block_ids: List[int]) -> Optional[torch.Tensor]:
+        """Every rank's head slice of ``block_ids``'s pages; on the leader
+        the whole pages [L, 2, H_kv, n, T, D]."""
+        ids = torch.tensor(block_ids, dtype=torch.long, device=self.device)
+        return self._tp.gather(read_pages(self.cache, ids), dim=2)
+
+    def _op_scatter_pages(self, block_ids: List[int],
+                          pages: Optional[torch.Tensor] = None) -> None:
+        """Each rank's head slice of the leader's whole ``pages`` [L, 2,
+        H_kv, n, T, D] into its cache at ``block_ids``, in place."""
+        L, two, H, _, T, D = self.cache.shape
+        local = torch.empty((L, two, H, len(block_ids), T, D),
+                            dtype=self.cache.dtype, device=self.device)
+        self._tp.scatter_(local, None if pages is None else list(
+            pages.to(self.cache.dtype).chunk(self._tp.size, dim=2)))
+        ids = torch.tensor(block_ids, dtype=torch.long, device=self.device)
+        self.cache = write_pages(self.cache, ids, local)
+
+    def _op_adopt_pages(self, block_ids: List[int],
+                        kv: Optional[torch.Tensor] = None) -> None:
+        """Adopted prompt KV [L, 2, 1, S, H_kv, D] into the cache at
+        ``block_ids``; under tp each rank gets its head slice of the
+        leader's ``kv``."""
+        T = self.pc.block_tokens
+        if self._tp is not None:
+            L, two, H, _, _, D = self.cache.shape
+            local = torch.empty((L, two, 1, len(block_ids) * T, H, D),
+                                dtype=self.cache.dtype, device=self.device)
+            self._tp.scatter_(local, None if kv is None else list(
+                kv.to(self.device, self.cache.dtype).chunk(
+                    self._tp.size, dim=4)))
+            kv = local
+        self.cache = _write_prefill_pages(
+            self.cache, block_ids, kv.to(self.device, self.cache.dtype), T)
+
+    def _op_prompt_forward(self, tokens: List[int], adapter_id: int):
+        logits, _ = self._prefill(self.params, tokens=self._tokens([tokens]),
+                                  **self._lora_args([adapter_id]))
+        return logits
 
     # ---- prefill ----
 
@@ -736,8 +973,6 @@ class InferenceEngine:
                 _PREFIX_TOKENS_TENANT.labels(tenant, "store").inc(
                     (reused - local_chunks) * T)
             _PREFIX_TOKENS_TENANT.labels(tenant, "computed").inc(S_total - P)
-        prefix_kv = _read_prefix_kv(self.cache, block_ids[:reused]) \
-            if reused else None  # [L, 2, 1, n*T, H, D]
 
         # compute the tail, padded to whole pages, ``prefill_chunk`` tokens
         # per forward; the prefix of a later chunk lives in a buffer bucketed
@@ -746,20 +981,17 @@ class InferenceEngine:
         S = len(suffix)
         padded = suffix + [0] * ((-S) % T)
         C = self.prefill_chunk or len(padded)
-        single = C >= len(padded)
-        if single:
-            buf, plen = prefix_kv, P  # exact buffer: no slack, K3 at q_offset=P
-        elif prefix_kv is not None:
-            buf, plen = _pad_seq_axis(prefix_kv, _round_up_pow2(P, C)), P
-        else:
-            buf, plen = None, 0
-        return PartialPrefill(
+        pp = PartialPrefill(
             tokens=tokens, keys=keys, block_ids=block_ids, reused=reused,
             done=reused, n_complete=S_total // T, padded=padded, C=C,
-            single=single, buf=buf, plen=plen, S=S, adapter_id=adapter_id,
-            local_chunks=local_chunks, store_chunks=reused - local_chunks,
-            store_load_s=store_load_s,
+            single=C >= len(padded), buf=None, plen=P, S=S,
+            adapter_id=adapter_id, local_chunks=local_chunks,
+            store_chunks=reused - local_chunks, store_load_s=store_load_s,
+            pid=self._next_pid,
         )
+        self._next_pid += 1
+        self._op("prefill_begin", pp)
+        return pp
 
     def prefill_step(self, pp: PartialPrefill,
                      eager: bool = False) -> Optional[SequenceState]:
@@ -776,31 +1008,14 @@ class InferenceEngine:
         prompt: the whole prompt in one forward (``prefill_chunk`` None, no
         prefix) and a single chunk over an exact prefix beyond those bounds
         (K3 at ``q_offset = P``)."""
-        T = self.pc.block_tokens
-        off, C = pp.off, pp.C
-        chunk = pp.padded[off: off + C]
-        n = len(chunk)
-        # the only logits row a prefill needs: the prompt's last token's
-        # (any row of a chunk that is not the last)
-        last = max(0, min(pp.S - 1 - off, n - 1))
         with self._on_engine_stream():
-            if not self._takes_graph(pp, n):
-                logits, kv = self._prefill(
-                    self.params, tokens=self._tokens([chunk]),
-                    prefix_kv=pp.buf, logits_rows=torch.tensor(
-                        [last], dtype=torch.long, device=self.device),
-                    **self._lora_args([pp.adapter_id]))
-            else:
-                logits, kv = self._prefill_chunk(pp, chunk, last, eager)
-                kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
+            prev_done = pp.done
+            n = len(pp.padded[pp.off: pp.off + pp.C])
+            logits = self._op("prefill_chunk", pp, eager,
+                              self._takes_graph(pp, n))
             # the chunk forward + its cache landing: one prefill dispatch
             # unit for the step profiler
             _stepprof.note_dispatch("prefill")
-            n_pg = n // T
-            self.cache = _write_prefill_pages(
-                self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
-            )
-            prev_done, pp.done = pp.done, pp.done + n_pg
             # stream this chunk's complete pages to the store NOW: the
             # gather is queued behind the cache write on the compute
             # stream, the streamer's copies run while the next chunk
@@ -814,19 +1029,7 @@ class InferenceEngine:
                                                    pp.block_ids[lo:hi]),
                         pp.keys[lo:hi],
                     )
-            pp.off = off + C
             if pp.off < len(pp.padded):
-                # another chunk attends to this KV: grow the bucketed
-                # prefix buffer and append in place
-                need = pp.plen + n
-                ncap = _round_up_pow2(need, C)
-                if pp.buf is None:
-                    pp.buf = _pad_seq_axis(kv, ncap)
-                else:
-                    if ncap > pp.buf.shape[3]:
-                        pp.buf = _pad_seq_axis(pp.buf, ncap)
-                    pp.buf[:, :, :, pp.plen: need] = kv
-                pp.plen = need
                 return None
             # a copy, and taken now: a graph's logits are rewritten by the
             # next replay
@@ -856,6 +1059,48 @@ class InferenceEngine:
         self._next_id += 1
         self.seqs[state.seq_id] = state
         return state
+
+    def _op_prefill_chunk(self, pp: PartialPrefill, eager: bool,
+                          graph: bool) -> torch.Tensor:
+        """``pp``'s next chunk: its forward (through its prefill-graph body
+        when ``graph``), its cache landing and, when another chunk follows,
+        the prefix buffer grown by its KV.  Advances ``pp``; returns the
+        logits row [1, 1, V]."""
+        T = self.pc.block_tokens
+        off, C = pp.off, pp.C
+        chunk = pp.padded[off: off + C]
+        n = len(chunk)
+        # the only logits row a prefill needs: the prompt's last token's
+        # (any row of a chunk that is not the last)
+        last = max(0, min(pp.S - 1 - off, n - 1))
+        if not graph:
+            logits, kv = self._prefill(
+                self.params, tokens=self._tokens([chunk]),
+                prefix_kv=pp.buf, logits_rows=torch.tensor(
+                    [last], dtype=torch.long, device=self.device),
+                **self._lora_args([pp.adapter_id]))
+        else:
+            logits, kv = self._prefill_chunk(pp, chunk, last, eager)
+            kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
+        n_pg = n // T
+        self.cache = _write_prefill_pages(
+            self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
+        )
+        pp.done += n_pg
+        pp.off = off + C
+        if pp.off < len(pp.padded):
+            # another chunk attends to this KV: grow the bucketed prefix
+            # buffer and append in place
+            need = pp.plen + n
+            ncap = _round_up_pow2(need, C)
+            if pp.buf is None:
+                pp.buf = _pad_seq_axis(kv, ncap)
+            else:
+                if ncap > pp.buf.shape[3]:
+                    pp.buf = _pad_seq_axis(pp.buf, ncap)
+                pp.buf[:, :, :, pp.plen: need] = kv
+            pp.plen = need
+        return logits
 
     @contextlib.contextmanager
     def _on_engine_stream(self):
@@ -922,7 +1167,7 @@ class InferenceEngine:
             # its own prefix in (the slack past ``plen`` is masked)
             g.plen.fill_(pp.plen)
             g.buf[:, :, :, :pp.plen].copy_(pp.buf[:, :, :, :pp.plen])
-        if eager or self.device.type != "cuda":
+        if eager or self.device.type != "cuda" or not self._capture_ok:
             self._prefill_body(g)
         elif g.graph is None:
             self._prefill_body(g)
@@ -957,14 +1202,14 @@ class InferenceEngine:
                 aid=torch.zeros((1,), dtype=torch.int32, device=dev),
                 logits=torch.zeros((1, 1, cfg.vocab_size), dtype=dtype,
                                    device=dev),
-                kv=torch.zeros(cfg.n_layers * 2 * rows * cfg.n_kv_heads
+                kv=torch.zeros(cfg.n_layers * 2 * rows * self._hkv
                                * cfg.head_dim, dtype=dtype, device=dev))
         buf = None
         if route == "prefix":
             buf = self._pf_prefix.get(cap)
             if buf is None:
                 buf = self._pf_prefix[cap] = self._prefix_buffer(cap, dtype)
-        kv_shape = (cfg.n_layers, 2, 1, Cb, cfg.n_kv_heads, cfg.head_dim)
+        kv_shape = (cfg.n_layers, 2, 1, Cb, self._hkv, cfg.head_dim)
         g = self._prefill_graphs[key] = _PrefillGraph(
             key, torch.zeros((1, Cb), dtype=torch.int32, device=dev),
             sh["last"], sh["plen"] if buf is not None else None, buf,
@@ -973,13 +1218,14 @@ class InferenceEngine:
         return g
 
     def _prefix_buffer(self, cap: int, dtype: torch.dtype) -> torch.Tensor:
-        """A zeroed prefix buffer of ``cap`` rows [L, 2, 1, cap, H_kv, D]: a
+        """A zeroed prefix buffer of ``cap`` rows [L, 2, 1, cap, H_kv, D]
+        (this rank's KV heads): a
         view of the shared storage of ``TAIL_GRAPH_PREFIX`` rows (made at
         the first such capacity) when it fits, else a tensor of its own.
         The keys may share it: each chunk copies its own prefix in before
         its body runs, and the engine's prefill graphs run one at a time."""
         cfg = self.cfg
-        shape = (cfg.n_layers, 2, 1, cap, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, 2, 1, cap, self._hkv, cfg.head_dim)
         if cap > TAIL_GRAPH_PREFIX:
             return torch.zeros(shape, dtype=dtype, device=self.device)
         flat = self._pf_shared.get("prefix")
@@ -1026,7 +1272,9 @@ class InferenceEngine:
         real positions' attention, and ``seq_lens`` masks it during
         decode).  Nothing registers in the prefix cache and nothing
         streams to the store: external KV carries no prefix-commitment
-        chain, so it is private to this sequence."""
+        chain, so it is private to this sequence.  Under tensor
+        parallelism ``kv`` holds every head, on the leader; each rank gets
+        its slice."""
         T = self.pc.block_tokens
         if kv.dim() != 6 or kv.shape[2] != 1:
             raise ValueError(f"adopted KV must be [L, 2, 1, S, Hkv, D], got "
@@ -1037,8 +1285,7 @@ class InferenceEngine:
                 f"adopted KV must cover the prompt in whole pages: "
                 f"S={S}, block_tokens={T}, len(tokens)={len(tokens)}")
         ids = self.pages.acquire(S // T)
-        self.cache = _write_prefill_pages(
-            self.cache, ids, kv.to(self.device, self.cache.dtype), T)
+        self._op("adopt_pages", list(ids), kv=kv)
         state = SequenceState(
             seq_id=self._next_id, tokens=list(tokens), block_ids=list(ids),
             chunk_keys=[],
@@ -1077,6 +1324,7 @@ class InferenceEngine:
         being released."""
         self.pages.unpin(pp.block_ids)
         pp.block_ids = []
+        self._op("prefill_drop", pp.pid)
 
     def prefill_batch(
         self, prompts: Sequence[Sequence[int]],
@@ -1173,15 +1421,13 @@ class InferenceEngine:
         tokens = np.zeros((Bp, bucket), dtype=np.int32)
         for b, p in enumerate(group):
             tokens[b, : len(p)] = p
-        logits, kv = self._prefill(
-            self.params, tokens=torch.from_numpy(tokens).to(self.device),
-            **self._lora_args(aids + [0] * (Bp - B)))
-        _stepprof.note_dispatch("prefill")  # one padded group forward
         full = bucket // T
         sel = np.concatenate([
             b * full + np.arange(n_pg) for b, n_pg in enumerate(n_pages_each)
         ])
-        self.cache = _write_group_pages(self.cache, ids_all, kv, sel, T)
+        logits = self._op("prefill_group", tokens, list(ids_all), sel,
+                          aids + [0] * (Bp - B))
+        _stepprof.note_dispatch("prefill")  # one padded group forward
         last = torch.tensor([len(p) - 1 for p in group], device=self.device)
         last_rows = logits[torch.arange(B, device=self.device), last]
         states = []
@@ -1202,6 +1448,17 @@ class InferenceEngine:
             states.append(st)
             off += n_pg
         return states
+
+    def _op_prefill_group(self, tokens: np.ndarray, block_ids: List[int],
+                          sel: np.ndarray, aids: List[int]) -> torch.Tensor:
+        """A same-bucket group's padded forward and its cache landing;
+        returns the logits [Bp, bucket, V]."""
+        logits, kv = self._prefill(
+            self.params, tokens=torch.from_numpy(tokens).to(self.device),
+            **self._lora_args(aids))
+        self.cache = _write_group_pages(self.cache, block_ids, kv, sel,
+                                        self.pc.block_tokens)
+        return logits
 
     # ---- decode ----
 
@@ -1268,7 +1525,13 @@ class InferenceEngine:
         counts it and its seconds under ``kind``.  ``body`` writes only
         static tensors made outside the capture, so nothing the pool holds
         outlives a replay and any graph of the pool may replay next.  A
-        failed capture raises."""
+        failed capture raises, and so does a tensor-parallel group whose
+        collectives run on the host (gloo)."""
+        if not self._capture_ok:
+            raise RuntimeError(
+                f"a {self._tp.backend} tensor-parallel group runs its "
+                f"collectives on the host: no CUDA graph can capture them "
+                f"(the graph bodies run eagerly)")
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -1327,7 +1590,7 @@ class InferenceEngine:
         key's graph replays ``chunk`` times, and a key seen for the first
         time runs its first step eagerly and is captured after it."""
         g.step.zero_()
-        if eager or self.device.type != "cuda":
+        if eager or self.device.type != "cuda" or not self._capture_ok:
             for _ in range(chunk):
                 self._step(g)
             return
@@ -1462,6 +1725,8 @@ class InferenceEngine:
         B = len(states)
         if B < 1:
             raise ValueError("decode_batch needs at least one sequence")
+        if collect and self._tp is not None:
+            raise _tp_unsupported("speculation")
         samples = [sample] * B if isinstance(sample, str) else list(sample)
         if len(samples) != B or not all(
                 s in ("greedy", "categorical") for s in samples):
@@ -1549,18 +1814,21 @@ class InferenceEngine:
                 )
                 self._load_penalties(g, states, pen_key, pres, freq, rep,
                                      biases, gen_start, pen_cache)
+            self._op("decode_begin", g.key)
             out: List[List[int]] = [[] for _ in range(B)]
             lps: List[List[tuple]] = [[] for _ in range(B)]
             qs: List[torch.Tensor] = []
             remaining = n_steps
             while remaining > 0:
                 chunk = min(remaining, self.decode_chunk)
-                self._run_chunk(g, chunk, eager)
+                self._op("decode_chunk", g.key, chunk, eager)
                 # the whole batch advanced a chunk
                 _stepprof.note_dispatch("decode")
                 _stepprof.note_tokens(chunk * B)
                 _stepprof.note_sync("decode_tokens")
                 host_toks = g.toks[:chunk].cpu().numpy()  # one sync/chunk
+                if self._tp is not None:
+                    self.rank_tokens.append(host_toks[:, :B].tolist())
                 if collect:
                     qs.append(g.q[:chunk, :B].clone())
                 for b in range(B):
@@ -1592,6 +1860,27 @@ class InferenceEngine:
         if logprobs:
             return out, lps
         return out
+
+    def _op_decode_begin(self, key: tuple) -> None:
+        """Under tp: the leader's inputs of ``key``'s decode graph (logits,
+        positions, table, sampling vectors, penalty state) into every
+        rank's buffers, so every rank steps from the same bits."""
+        if self._tp is None:
+            return
+        for t in self._decode_graph(key).inputs():
+            self._tp.broadcast_(t)
+
+    def _op_decode_chunk(self, key: tuple, chunk: int, eager: bool) -> None:
+        g = self._decode_graph(key)
+        self._run_chunk(g, chunk, eager)
+        if self._tp is not None and not self._tp.is_leader:
+            self.rank_tokens.append(
+                g.toks[:chunk].cpu().numpy()[:, :self._rows(g)].tolist())
+
+    def _rows(self, g: "_DecodeGraph") -> int:
+        # the real rows of the leader's batch: the pad rows' table entries
+        # are n_blocks
+        return int((g.table[:, 0] != self.pc.n_blocks).sum())
 
     def _load_penalties(self, g: "_DecodeGraph", states, pen_key, pres,
                         freq, rep, biases, gen_start, pen_cache) -> None:
@@ -1678,6 +1967,8 @@ class InferenceEngine:
         are accepted.  K/V written for later-rejected tokens is harmless:
         attention masks by absolute position, and a future token at the
         same position overwrites the same page slot."""
+        if self._tp is not None:
+            raise _tp_unsupported("speculation")
         if not self._has_verify:
             raise ValueError(
                 "this engine's model family has no verify step; pass "
@@ -1752,9 +2043,9 @@ class InferenceEngine:
         pad = 8
         while pad < S:
             pad *= 2
-        toks = self._tokens([list(tokens) + [0] * (pad - S)])
-        logits, _ = self._prefill(self.params, tokens=toks,
-                                  **self._lora_args([adapter_id]))
+        row = list(tokens) + [0] * (pad - S)
+        toks = self._tokens([row])
+        logits = self._op("prompt_forward", row, adapter_id)
         nxt = torch.cat([toks[0, 1:], toks[0, :1]]).long()
         R = min(pad, 256)
         kk = max(k, 1)
@@ -1899,6 +2190,12 @@ class _DecodeGraph:
     def buffers(self) -> List[torch.Tensor]:
         return [t for t in vars(self).values() if isinstance(t, torch.Tensor)
                 ] + list(self.pen)
+
+    def inputs(self) -> List[torch.Tensor]:
+        """The buffers a decode call fills before its first step."""
+        return [t for t in (self.logits, self.pos, self.table, self.aid,
+                            self.greedy, self.temp, self.top_k, self.top_p,
+                            self.rowkey) if t is not None] + list(self.pen)
 
 
 class _PrefillGraph:

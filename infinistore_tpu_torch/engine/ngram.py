@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from . import stepprof as _stepprof
-from .engine import InferenceEngine, SequenceState, _round_up_pow2
+from .engine import (InferenceEngine, SequenceState, _round_up_pow2,
+                     _tp_unsupported)
 from .speculative import (
     _emitted,
     _greedy_accept,
@@ -74,6 +75,8 @@ class NgramSpeculator(_RoundGraphOwner):
     def __init__(self, target: InferenceEngine, k: int = 8, g: int = 2):
         if k < 1 or g < 1:
             raise ValueError(f"k and g must be >= 1, got k={k}, g={g}")
+        if target.tp_size > 1:
+            raise _tp_unsupported("speculation")
         self.target = target
         self.k = k
         self.g = g

@@ -78,6 +78,7 @@ from .engine import (
     _round_up_pow2,
     _row_keys,
     _sampling_logits,
+    _tp_unsupported,
 )
 
 # the accept draws' key: a row key mixed with this salt, so they never
@@ -381,6 +382,9 @@ class SpeculativeDecoder(_RoundGraphOwner):
                              f"{draft.device}: one device")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
+        for e in (target, draft):
+            if e.tp_size > 1:
+                raise _tp_unsupported("speculation")
         self.target = target
         self.draft = draft
         self.k = k

@@ -112,6 +112,10 @@ class KVTransferEngine:
         # reference's keys)
         self.last_push_stages: dict = {}
         self.last_load_stages: dict = {}
+        # a tensor-parallel engine's page hook (``gather(cache, ids)`` ->
+        # whole pages, ``scatter(cache, ids, pages)``): the cache holds
+        # one rank's KV heads, the store whole pages (``cfg``'s heads)
+        self.tp_pages = None
 
     @property
     def conn(self):
@@ -292,9 +296,12 @@ class KVTransferEngine:
         run of bytes (+ the int8 quantize: [L, n, wire_page_bytes] uint8).
         A new tensor, so a caller can hand it to a background pusher while
         later chunks write the cache in place."""
-        ids = torch.as_tensor(np.asarray(block_ids, dtype=np.int64),
-                              device=cache.device)
-        gathered = read_pages(cache, ids)  # [L, 2, H, n, T, D]
+        if self.tp_pages is not None:  # every rank's heads
+            gathered = self.tp_pages.gather(cache, block_ids)
+        else:
+            ids = torch.as_tensor(np.asarray(block_ids, dtype=np.int64),
+                                  device=cache.device)
+            gathered = read_pages(cache, ids)  # [L, 2, H, n, T, D]
         pages = gathered.permute(0, 3, 1, 2, 4, 5).contiguous()
         if self.quant:
             pages = quantize_pages(pages)  # [L, n, wire_page_bytes] uint8
@@ -503,6 +510,8 @@ class KVTransferEngine:
         if self.quant:
             stacked = dequantize_pages(stacked, self.cfg)  # [L, n, 2, H, T, D]
         pages = stacked.permute(0, 2, 3, 1, 4, 5)  # [L, 2, H, n, T, D]
+        if self.tp_pages is not None:  # each rank its heads
+            return self.tp_pages.scatter(cache, block_ids, pages)
         ids = torch.as_tensor(np.asarray(block_ids, dtype=np.int64),
                               device=cache.device)
         return write_pages(cache, ids, pages)

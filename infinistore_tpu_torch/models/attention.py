@@ -12,6 +12,10 @@ exception caught, no fallback when a kernel fails.  The multi-token
 attention of the verify step is plain PyTorch on every device, as the
 reference's is XLA on every backend (``paged_multitoken_attention_xla``
 has no Pallas kernel).
+
+The tensor-parallel compositions (``paged_decode_attention_tp``,
+``flash_causal_attention_tp``) run the same kernels on one rank's head
+shard: attention is head-local, so they need no collective.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from ..ops.cuda_attention import (
 
 __all__ = [
     "rope_freqs", "apply_rope", "repeat_kv", "causal_attention",
-    "causal_attention_xla", "paged_decode_attention",
+    "causal_attention_xla", "flash_causal_attention_tp",
+    "paged_decode_attention", "paged_decode_attention_tp",
     "paged_decode_attention_xla", "paged_multitoken_attention",
 ]
 
@@ -125,6 +130,91 @@ def causal_attention(
             raise ValueError("padded-prefix mode needs prefix_pad")
         return flash_prefix_attention_cuda(q, k, v, prefix_pad, prefix_len)
     return flash_causal_attention_cuda(q, k, v, q_offset=q_offset)
+
+
+def _check_shard(q_heads: int, kv_heads: int, tp: int, H: int,
+                 Hkv: int) -> None:
+    """A rank's head shard holds whole GQA groups: ``tp`` divides both
+    global head counts ``H`` and ``Hkv`` (the reference's asserts,
+    ``models/attention.py:116,395``) and the shard holds ``1/tp`` of
+    each."""
+    if (tp < 1 or H % tp or Hkv % tp or q_heads != H // tp
+            or kv_heads != Hkv // tp or q_heads % kv_heads):
+        raise ValueError(
+            f"a tp={tp} head shard of H={H}, H_kv={Hkv} holds {H // tp} "
+            f"query and {Hkv // tp} KV heads (whole GQA groups), got "
+            f"{q_heads} and {kv_heads}")
+
+
+def flash_causal_attention_tp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tp: int,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    q_offset: int = 0,
+    prefix_pad: Optional[int] = None,
+    prefix_len=None,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Tensor-parallel prefill attention on one rank: K3 (or, with
+    ``prefix_len``, K2) over the rank's head shard.  The port of the
+    reference's ``flash_causal_attention_tp`` (``models/attention.py:
+    83-145``).
+
+    Prefill attention is head-local: with ``tp | H_kv`` each rank holds
+    whole (q-head group, kv-head) families, so the kernel runs on the local
+    shard with no collective.  The reference takes the global arrays and
+    ``shard_map``s them over the mesh's ``tp`` axis; here each rank is its
+    own process and passes its shard, q [B, Sq, H/tp, D], k/v [B, Sk,
+    H_kv/tp, D] (contiguous, as the rank projected them), and gets its
+    shard of the output [B, Sq, H/tp, D].  ``n_heads``/``n_kv_heads`` (the
+    global counts) are checked against ``tp`` and the shard's shapes.
+
+    The reference routes to XLA at head sizes off the TPU's 128-lane
+    tiling; the port's kernels take head sizes 32, 64 and 128, so every
+    head size runs the kernel, as the single-rank path does.  A window or a
+    softcap takes the plain version on every device and the CPU takes it
+    for every call, as ``causal_attention`` routes them."""
+    _check_shard(q.shape[2], k.shape[2], tp, n_heads, n_kv_heads)
+    return causal_attention(q, k, v, q_offset=q_offset,
+                            prefix_pad=prefix_pad, prefix_len=prefix_len,
+                            window=window, softcap=softcap)
+
+
+def paged_decode_attention_tp(
+    q: torch.Tensor,
+    layer_cache: torch.Tensor,
+    block_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    tp: int,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Tensor-parallel paged decode attention on one rank: K1 over the
+    rank's head shard of the queries and the paged cache.  The port of the
+    reference's ``paged_decode_attention_tp`` (``models/attention.py:
+    367-414``).
+
+    Paged attention is head-local (each q-head group reads only its own KV
+    head's pages), so the shard needs no collective.  The reference splits
+    global arrays with a ``shard_map``; here q is the rank's [B, H/tp, D]
+    and ``layer_cache`` its own contiguous cache shard [2, H_kv/tp,
+    n_blocks, T, D] (``kv/cache.py``), and the result is the rank's shard
+    [B, H/tp, D].  The reference's ``pallas_tp`` switch exists because
+    ``pallas_call`` has no partitioning rule; a CUDA kernel on a shard
+    needs none, so the kernel runs on the shards either way.  Routes as
+    ``paged_decode_attention`` does (the plain version on the CPU, for a
+    window or a softcap)."""
+    _check_shard(q.shape[1], layer_cache.shape[1], tp, n_heads, n_kv_heads)
+    return paged_decode_attention(q, layer_cache, block_table, seq_lens,
+                                  window=window, softcap=softcap)
 
 
 def paged_decode_attention(

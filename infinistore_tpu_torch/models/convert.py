@@ -35,16 +35,28 @@ def _leaf(x: Any, cfg: LlamaConfig, device,
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
-                    device) -> Params:
+                    device, tp_rank: int = 0, tp: int = 1) -> Params:
     """The port's parameters from the reference pytree, whose leaves are
-    numpy arrays (or anything ``np.asarray`` takes)."""
+    numpy arrays (or anything ``np.asarray`` takes).
+
+    ``tp_rank``/``tp``: the rank's tensor-parallel shard
+    (``parallel.sharding.llama_inference_specs``), each numpy leaf sliced
+    before it reaches ``device``, so no rank holds the whole model there."""
+    from ..parallel.sharding import llama_inference_specs, shard_leaf
+
+    specs = llama_inference_specs(tree)
+
+    def leaf(x, dim, dtype=None):
+        x = shard_leaf(np.asarray(x), dim, tp_rank, tp)
+        return _leaf(x, cfg, device, dtype)
+
     return {
-        "embed": _leaf(tree["embed"], cfg, device),
-        "layers": {k: _leaf(v, cfg, device, torch.float32
-                            if k in _FLOAT32_LEAVES else None)
+        "embed": leaf(tree["embed"], specs["embed"]),
+        "layers": {k: leaf(v, specs["layers"].get(k), torch.float32
+                           if k in _FLOAT32_LEAVES else None)
                    for k, v in tree["layers"].items()},
-        "ln_out": _leaf(tree["ln_out"], cfg, device),
-        "lm_head": _leaf(tree["lm_head"], cfg, device),
+        "ln_out": leaf(tree["ln_out"], specs["ln_out"]),
+        "lm_head": leaf(tree["lm_head"], specs["lm_head"]),
     }
 
 

@@ -201,36 +201,61 @@ def _getter(state: MutableMapping[str, Any], consume: bool):
 
 
 def _params_tail(get, state: Mapping[str, Any], cfg,
-                 layers: Dict[str, torch.Tensor]) -> Params:
+                 layers: Dict[str, torch.Tensor], shard=None) -> Params:
     """embed / final norm / lm_head, shared by both importers.
     Tied-embedding checkpoints (no ``lm_head.weight``) reuse the embedding
-    matrix, as transformers' ``tie_word_embeddings`` does."""
-    def own(t: torch.Tensor) -> torch.Tensor:  # a copy in cfg.dtype
+    matrix, as transformers' ``tie_word_embeddings`` does.  ``shard(t,
+    name)``: the tensor-parallel rank's slice of a whole leaf, on its
+    device (the dense importer's ``tp``)."""
+    shard = shard or (lambda t, name: t)
+
+    def own(t: torch.Tensor, name: str) -> torch.Tensor:  # cfg.dtype copy
+        t = shard(t, name)
         return torch.empty(t.shape, dtype=cfg.dtype,
                            device=t.device).copy_(t)
 
     head = get("lm_head.weight") if "lm_head.weight" in state else None
     embed = get("model.embed_tokens.weight")
     return {
-        "embed": own(embed),
+        "embed": own(embed, "embed"),
         "layers": layers,
-        "ln_out": own(get("model.norm.weight")),
-        "lm_head": own((embed if head is None else head).t()),
+        "ln_out": own(get("model.norm.weight"), "ln_out"),
+        "lm_head": own((embed if head is None else head).t(), "lm_head"),
     }
 
 
 def params_from_hf(model_or_state: Any, cfg: Optional[LlamaConfig] = None,
-                   consume: bool = False) -> Params:
+                   consume: bool = False, tp_rank: int = 0, tp: int = 1,
+                   device=None) -> Params:
     """An HF dense decoder (or its state dict) as the port's params, in
-    ``cfg.dtype`` on the tensors' device.
+    ``cfg.dtype`` on the tensors' device (or on ``device``).
 
     ``consume``: remove each tensor from the state dict once it is copied,
     so a state dict holding the only reference to its tensors frees them as
     the import goes (the import's peak is then the params plus one stacked
-    leaf, not two models)."""
+    leaf, not two models).
+
+    ``tp_rank``/``tp``: only the rank's tensor-parallel shard
+    (``parallel.sharding.llama_inference_specs``) is imported, each leaf
+    sliced one layer at a time before it is copied to ``device``; with a
+    state dict on the host, the device then holds the shard and no more
+    than one layer's leaf beside it."""
+    from ..parallel.sharding import llama_inference_specs, shard_leaf
+
     cfg, state = _state_of(model_or_state, cfg, config_from_hf)
     get = _getter(state, consume)
     hd = cfg.head_dim
+    specs = llama_inference_specs(cfg=cfg)
+    dims = {**specs["layers"], "embed": specs["embed"],
+            "ln_out": specs["ln_out"], "lm_head": specs["lm_head"]}
+
+    def shard(t: torch.Tensor, name: str, per_layer: bool = False):
+        dim = dims.get(name)
+        if dim is not None and per_layer:
+            dim -= 1  # the spec counts the stacked layer axis
+        t = shard_leaf(t, dim, tp_rank, tp)
+        return t if device is None else t.to(device)
+
     leaves: Dict[str, torch.Tensor] = {}
     for li in range(cfg.n_layers):
         p = f"model.layers.{li}."
@@ -259,8 +284,9 @@ def params_from_hf(model_or_state: Any, cfg: Optional[LlamaConfig] = None,
             layer["q_norm"] = _qk_vec(get(p + "self_attn.q_norm.weight"), 1, hd)
             layer["k_norm"] = _qk_vec(get(p + "self_attn.k_norm.weight"), 1, hd)
         for k, t in layer.items():
-            _put(leaves, k, li, (cfg.n_layers,), t, cfg.dtype)
-    return _params_tail(get, state, cfg, leaves)
+            _put(leaves, k, li, (cfg.n_layers,), shard(t, k, True),
+                 cfg.dtype)
+    return _params_tail(get, state, cfg, leaves, shard)
 
 
 # ---- Mixtral-style sparse MoE ----

@@ -14,6 +14,14 @@ Three entry points:
   (kv/cache.py), returning logits and the (updated in place) cache.
 * ``verify_forward``: a short run of tokens per sequence against the paged
   cache in one forward (the speculative-decode verify step).
+
+Each forward takes ``tp`` (a ``parallel.TPGroup``) to run on one rank's
+Megatron shard of the weights (``parallel/sharding.py``): the local head
+counts come from the weights' shapes, an all-reduce follows ``attn @ wo``
+and ``... @ w_down`` (before any residual or post-norm, where XLA's GSPMD
+puts it for the reference), the vocab-sharded logits are all-gathered
+before a final soft-cap, and attention runs the tensor-parallel
+compositions on the rank's head shard (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kv.cache import write_token_kv, write_tokens_kv
+from . import attention as _attention
 from .attention import (
     apply_rope,
     causal_attention,
@@ -115,35 +124,55 @@ def scaled(cfg: LlamaConfig, **kw) -> LlamaConfig:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device) -> Params:
+                device, tp_rank: int = 0, tp: int = 1) -> Params:
     """Random weights drawn normal / sqrt(fan_in) as the reference does
     (``llama.py:126-169``), from ``generator`` (which must live on
     ``device``), straight on ``device``.  Each layer's draw is made in fp32
     and cast into the stacked tensor, so a full-width model never holds a
     whole fp32 copy.  The reference's ``jax.random`` stream is not
     reproduced; tests carry reference weights across with
-    ``models/convert.py``."""
+    ``models/convert.py``.
+
+    ``tp_rank``/``tp``: only the rank's tensor-parallel shard is kept
+    (``parallel.sharding.llama_inference_specs``): every layer is drawn
+    whole, as at ``tp = 1``, and sliced, so the shard holds exactly the
+    whole model's values and the device never holds more than the shard
+    and one layer's draw."""
+    from ..parallel.sharding import llama_inference_specs, shard_leaf
+
     hd = cfg.head_dim
     L = cfg.n_layers
+    specs = llama_inference_specs(cfg=cfg)
+    dims = {**specs["layers"], "embed": specs["embed"],
+            "lm_head": specs["lm_head"]}
 
-    def dense(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        for i in range(shape[0] if len(shape) == 3 else 1):
-            dst = out[i] if len(shape) == 3 else out
-            w = torch.randn(dst.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            dst.copy_(w / math.sqrt(fan_in))
+    def dense(shape, fan_in, name):
+        stacked = len(shape) == 3
+        dim = dims.get(name)
+        if dim is not None and stacked:
+            dim -= 1  # the spec counts the stacked layer axis
+        row = shape[1:] if stacked else shape
+        kept = list(row)
+        if dim is not None:
+            kept[dim] //= tp
+        out = torch.empty(((shape[0],) if stacked else ()) + tuple(kept),
+                          dtype=cfg.dtype, device=device)
+        for i in range(shape[0] if stacked else 1):
+            w = torch.randn(row, generator=generator, dtype=torch.float32,
+                            device=device)
+            w = shard_leaf(w, dim, tp_rank, tp)
+            (out[i] if stacked else out).copy_(w / math.sqrt(fan_in))
         return out
 
     fill = 0.0 if cfg.norm_offset else 1.0  # Gemma's (1 + w): zeros
     layers = {
-        "wq": dense((L, cfg.dim, cfg.n_heads * hd), cfg.dim),
-        "wk": dense((L, cfg.dim, cfg.n_kv_heads * hd), cfg.dim),
-        "wv": dense((L, cfg.dim, cfg.n_kv_heads * hd), cfg.dim),
-        "wo": dense((L, cfg.n_heads * hd, cfg.dim), cfg.n_heads * hd),
-        "w_gate": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim),
-        "w_up": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim),
-        "w_down": dense((L, cfg.ffn_dim, cfg.dim), cfg.ffn_dim),
+        "wq": dense((L, cfg.dim, cfg.n_heads * hd), cfg.dim, "wq"),
+        "wk": dense((L, cfg.dim, cfg.n_kv_heads * hd), cfg.dim, "wk"),
+        "wv": dense((L, cfg.dim, cfg.n_kv_heads * hd), cfg.dim, "wv"),
+        "wo": dense((L, cfg.n_heads * hd, cfg.dim), cfg.n_heads * hd, "wo"),
+        "w_gate": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim, "w_gate"),
+        "w_up": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim, "w_up"),
+        "w_down": dense((L, cfg.ffn_dim, cfg.dim), cfg.ffn_dim, "w_down"),
         "ln_attn": torch.full((L, cfg.dim), fill, dtype=cfg.dtype, device=device),
         "ln_mlp": torch.full((L, cfg.dim), fill, dtype=cfg.dtype, device=device),
     }
@@ -152,17 +181,19 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             layers[name] = torch.full((L, cfg.dim), fill, dtype=cfg.dtype,
                                       device=device)
     if cfg.attn_bias:
-        layers["bq"] = dense((L, 1, cfg.n_heads * hd), cfg.dim)[:, 0]
-        layers["bk"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim)[:, 0]
-        layers["bv"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim)[:, 0]
+        # drawn [L, 1, n] as the reference draws them: the head axis is
+        # the last either way, so shard it as wq's
+        layers["bq"] = dense((L, 1, cfg.n_heads * hd), cfg.dim, "wq")[:, 0]
+        layers["bk"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim, "wk")[:, 0]
+        layers["bv"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim, "wv")[:, 0]
     if cfg.qk_norm:
         layers["q_norm"] = torch.ones((L, hd), dtype=cfg.dtype, device=device)
         layers["k_norm"] = torch.ones((L, hd), dtype=cfg.dtype, device=device)
     return {
-        "embed": dense((cfg.vocab_size, cfg.dim), cfg.dim),
+        "embed": dense((cfg.vocab_size, cfg.dim), cfg.dim, "embed"),
         "layers": layers,
         "ln_out": torch.full((cfg.dim,), fill, dtype=cfg.dtype, device=device),
-        "lm_head": dense((cfg.dim, cfg.vocab_size), cfg.dim),
+        "lm_head": dense((cfg.dim, cfg.vocab_size), cfg.dim, "lm_head"),
     }
 
 
@@ -198,8 +229,11 @@ def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tens
     return x
 
 
-def _final_logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _final_logits(params: Params, cfg: LlamaConfig, x: torch.Tensor,
+                  tp=None) -> torch.Tensor:
     logits = x @ params["lm_head"]
+    if tp is not None:  # lm_head's columns are vocab-sharded
+        logits = tp.all_gather(logits, dim=-1)
     if cfg.final_softcap is not None:
         capped = cfg.final_softcap * torch.tanh(
             logits.float() / cfg.final_softcap
@@ -240,9 +274,11 @@ def _attn_qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
         v = v + _lora_term(x, lora, "wv", adapter_ids, lora_scale)
     if cfg.attn_bias:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    # head counts from the weights: a tensor-parallel rank holds H/tp and
+    # H_kv/tp of them
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:  # per-head RMSNorm before RoPE (Qwen3)
         q = rmsnorm(q, layer["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, layer["k_norm"], cfg.norm_eps)
@@ -258,30 +294,42 @@ def _attn_qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
 
 
 def _mlp(layer: Params, x: torch.Tensor,
-         cfg: Optional[LlamaConfig] = None) -> torch.Tensor:
+         cfg: Optional[LlamaConfig] = None, tp=None) -> torch.Tensor:
     gate = x @ layer["w_gate"]
     if cfg is not None and cfg.act == "gelu_tanh":  # GeGLU (Gemma)
         act = F.gelu(gate, approximate="tanh")
     else:
         act = F.silu(gate)
-    return (act * (x @ layer["w_up"])) @ layer["w_down"]
+    out = (act * (x @ layer["w_up"])) @ layer["w_down"]
+    # w_down's rows are ffn-sharded: each rank holds a partial sum
+    return out if tp is None else tp.all_reduce(out)
 
 
 def _block_tail(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
                 attn: torch.Tensor, lora=None, adapter_ids=None,
-                lora_scale: float = 1.0) -> torch.Tensor:
+                lora_scale: float = 1.0, tp=None) -> torch.Tensor:
     """Output projection (with its adapter term), residuals and MLP of one
-    layer."""
+    layer; with ``tp``, each projection's partial sums all-reduced before
+    the residual."""
     a = attn @ layer["wo"]
     if lora is not None:
         a = a + _lora_term(attn, lora, "wo", adapter_ids, lora_scale)
+    if tp is not None:  # wo's rows are head-sharded
+        a = tp.all_reduce(a)
     if cfg.post_norms:
         a = _norm(cfg, a, layer["ln_post_attn"])
     x = x + a
-    m = _mlp(layer, _norm(cfg, x, layer["ln_mlp"]), cfg)
+    m = _mlp(layer, _norm(cfg, x, layer["ln_mlp"]), cfg, tp)
     if cfg.post_norms:
         m = _norm(cfg, m, layer["ln_post_mlp"])
     return x + m
+
+
+def _no_lora_under_tp(tp, lora) -> None:
+    if tp is not None and lora is not None:
+        raise NotImplementedError(
+            "LoRA under tensor parallelism is not ported yet (ROADMAP.md "
+            "queue 1 item 5)")
 
 
 def prefill_forward(
@@ -294,6 +342,7 @@ def prefill_forward(
     lora=None,
     adapter_ids: Optional[torch.Tensor] = None,
     lora_scale: float = 1.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
@@ -319,7 +368,12 @@ def prefill_forward(
     int32 on the tokens' device) and ``lora_scale``: each row's adapter
     delta on ``wq``/``wk``/``wv``/``wo`` (id 0 is the base model).  The
     same three keywords serve ``decode_forward`` and ``verify_forward``.
+
+    ``tp`` (a ``parallel.TPGroup``; ``params`` the rank's shard): the KV
+    and the prefix are the rank's head shard [..., Hkv/tp, D], the logits
+    whole on every rank.  The same keyword serves the other forwards.
     """
+    _no_lora_under_tp(tp, lora)
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]
     start = P if prefix_len is None else prefix_len
@@ -335,21 +389,25 @@ def prefill_forward(
                             positions, **lkw)
         kvs.append(torch.stack([k, v], dim=0))  # [2, B, S, Hkv, D]
         if prefix_kv is None:
-            attn = causal_attention(q, k, v, window=win,
-                                    softcap=cfg.attn_softcap)
+            akw = dict(window=win, softcap=cfg.attn_softcap)
         else:
-            k_full = torch.cat([prefix_kv[li, 0], k], dim=1)
-            v_full = torch.cat([prefix_kv[li, 1], v], dim=1)
-            attn = causal_attention(
-                q, k_full, v_full, q_offset=P,
-                prefix_pad=P if prefix_len is not None else None,
-                prefix_len=prefix_len, window=win, softcap=cfg.attn_softcap,
-            )
-        x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), **lkw)
+            k = torch.cat([prefix_kv[li, 0], k], dim=1)
+            v = torch.cat([prefix_kv[li, 1], v], dim=1)
+            akw = dict(q_offset=P,
+                       prefix_pad=P if prefix_len is not None else None,
+                       prefix_len=prefix_len, window=win,
+                       softcap=cfg.attn_softcap)
+        if tp is None:
+            attn = causal_attention(q, k, v, **akw)
+        else:
+            attn = _attention.flash_causal_attention_tp(
+                q, k, v, tp.size, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, **akw)
+        x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
     if logits_rows is not None:
         x = x.index_select(1, logits_rows)
     x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x), torch.stack(kvs)
+    return _final_logits(params, cfg, x, tp), torch.stack(kvs)
 
 
 def decode_forward(
@@ -365,6 +423,7 @@ def decode_forward(
     lora=None,
     adapter_ids: Optional[torch.Tensor] = None,
     lora_scale: float = 1.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token paged decode.
 
@@ -374,8 +433,9 @@ def decode_forward(
     this token's K/V (pad rows carry ``n_blocks`` and write nothing).
     Returns (logits [B, V], cache).  The cache is updated IN PLACE (the
     reference donates it to the compiled step instead); the returned tensor
-    is the argument.
+    is the argument.  With ``tp``, the cache is the rank's head shard.
     """
+    _no_lora_under_tp(tp, lora)
     B = tokens.shape[0]
     x = _embed(params, cfg, tokens)[:, None, :]  # [B, 1, dim]
     pos = positions[:, None]
@@ -387,14 +447,18 @@ def decode_forward(
                             **lkw)
         cache = write_token_kv(cache, li, slot_block_ids, slot_ids,
                                k[:, 0], v[:, 0])
-        attn = paged_decode_attention(
-            q[:, 0], cache[li], block_table, seq_lens,
-            window=_window_for(cfg, li), softcap=cfg.attn_softcap,
-        )
+        akw = dict(window=_window_for(cfg, li), softcap=cfg.attn_softcap)
+        if tp is None:
+            attn = paged_decode_attention(q[:, 0], cache[li], block_table,
+                                          seq_lens, **akw)
+        else:
+            attn = _attention.paged_decode_attention_tp(
+                q[:, 0], cache[li], block_table, seq_lens, tp.size,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, **akw)
         x = _block_tail(layer, cfg, x, attn.reshape(B, -1)[:, None, :],
-                        **lkw)
+                        tp=tp, **lkw)
     x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x[:, 0]), cache
+    return _final_logits(params, cfg, x[:, 0], tp), cache
 
 
 def verify_forward(
@@ -410,6 +474,7 @@ def verify_forward(
     adapter_ids: Optional[torch.Tensor] = None,
     lora_scale: float = 1.0,
     last_only: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-token paged step: a short run of tokens per sequence against the
     paged cache in ONE forward (the speculative-decode verify step: the
@@ -429,6 +494,7 @@ def verify_forward(
     and returns logits [B, 1, V]: a resync or refresh that needs only the
     next-token distribution skips S-1 [dim, V] projections.
     """
+    _no_lora_under_tp(tp, lora)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)  # [B, S, dim]
     for li in range(cfg.n_layers):
@@ -442,8 +508,8 @@ def verify_forward(
             q, cache[li], block_table, positions,
             window=_window_for(cfg, li), softcap=cfg.attn_softcap,
         )
-        x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), **lkw)
+        x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x), cache
+    return _final_logits(params, cfg, x, tp), cache

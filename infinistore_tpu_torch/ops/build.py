@@ -40,6 +40,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the nvcc processes this process started: a tensor-parallel rank spawned
+# after its leader built the libraries starts none
+NVCC_RUNS = 0
 # one build at a time in a process: engines on several threads (an
 # in-process fleet) may launch their first kernel at once
 _BUILD_LOCK = threading.Lock()
@@ -79,6 +82,7 @@ def build_all() -> Dict[str, Path]:
 def _build_missing() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in SOURCES}
+    global NVCC_RUNS
     procs = {}
     for name, so in paths.items():
         if so.exists():
@@ -86,6 +90,7 @@ def _build_missing() -> Dict[str, Path]:
         tmp = so.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / SOURCES[name])]
+        NVCC_RUNS += 1
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp)

@@ -8,8 +8,11 @@ unchanged.  Only ``main`` differs: it serves the ``tiny`` model or a local
 HF checkpoint directory (``load_model``) on a ``--device`` (``cuda`` by
 default), and ``--role router`` hands the command line to the port's
 ``frontdoor.main``; ``--store-endpoints a,b,c`` (with ``--store-replicas``)
-shards the store over a ``cluster.RoutedStorePool``; ``--tp/--pp`` raise,
-naming the ``ROADMAP.md`` item they wait for.
+shards the store over a ``cluster.RoutedStorePool``; ``--tp N`` serves on
+N tensor-parallel ranks over ``torch.distributed`` (``--dist-backend``):
+this process leads (rank 0: HTTP, scheduler, store) and starts the N-1
+followers itself; ``--pp`` raises, naming the ``ROADMAP.md`` item it waits
+for.
 
 The reference's serving loop is vLLM, which fronts its engine with an
 OpenAI-compatible HTTP server; a standalone framework needs the same last
@@ -1628,6 +1631,11 @@ def _make_handler(server: ServingServer):
                     limit = None
                 payload = server.stepprof.snapshot(limit=limit)
                 payload["kernel_launches"] = dict(cuda_attention.LAUNCHES)
+                # under tensor parallelism: every rank's backend, whether
+                # its graphs capture, held bytes and kernel launches
+                ranks = server.engine.tp_report()
+                if ranks is not None:
+                    payload["tp"] = {"size": len(ranks), "ranks": ranks}
                 self._json(200, payload)
             elif self.path.split("?", 1)[0] == "/debug/health":
                 # the fleet health plane: watchdog alerts (firing/
@@ -2484,7 +2492,17 @@ def _read_safetensors(path: str, device) -> Dict[str, Any]:
     return out
 
 
-def load_model(name: str, device, seed: int = 0):
+def _is_moe_dir(name: str) -> bool:
+    """Whether ``name`` is a checkpoint directory of the MoE family."""
+    path = os.path.join(name, "config.json")
+    if name == "tiny" or not os.path.isfile(path):
+        return False
+    with open(path) as f:
+        return json.load(f).get("model_type") == "mixtral"
+
+
+def load_model(name: str, device, seed: int = 0, tp_rank: int = 0,
+               tp: int = 1):
     """The counterpart of the reference ``serve.main``'s ``load_model``:
     ``(cfg, params, engine_fns)`` on ``device``, ``engine_fns`` routing a
     Mixtral checkpoint through the MoE forwards.
@@ -2495,7 +2513,11 @@ def load_model(name: str, device, seed: int = 0):
     version, if any, is installed), and its ``*.safetensors`` weights
     (``save_pretrained``'s format), each tensor copied straight to
     ``device`` and imported there by ``models.hf`` in the config's
-    default dtype (bf16), freed from the state dict as it is stacked."""
+    default dtype (bf16), freed from the state dict as it is stacked.
+
+    ``tp_rank``/``tp``: only that tensor-parallel rank's shard of a dense
+    model reaches ``device`` (a checkpoint is read into host memory and
+    sliced a layer at a time)."""
     import glob
     import types
 
@@ -2506,7 +2528,8 @@ def load_model(name: str, device, seed: int = 0):
     if name == "tiny":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return TINY, init_params(TINY, gen, device), {}
+        return TINY, init_params(TINY, gen, device, tp_rank=tp_rank,
+                                 tp=tp), {}
     if not os.path.isfile(os.path.join(name, "config.json")):
         raise SystemExit(f"{name!r} is neither 'tiny' nor a checkpoint "
                          f"directory holding a config.json")
@@ -2514,7 +2537,7 @@ def load_model(name: str, device, seed: int = 0):
         hf_config = types.SimpleNamespace(**json.load(f))
     state: Dict[str, Any] = {}
     for path in sorted(glob.glob(os.path.join(name, "*.safetensors"))):
-        state.update(_read_safetensors(path, device))
+        state.update(_read_safetensors(path, device if tp == 1 else "cpu"))
     if not state:
         raise SystemExit(f"no *.safetensors weights in {name!r}")
     from .models import hf
@@ -2530,7 +2553,69 @@ def load_model(name: str, device, seed: int = 0):
             "verify_fn": moe_verify_forward,
         }
     cfg = hf.config_from_hf(hf_config)
+    if tp > 1:
+        return cfg, hf.params_from_hf(state, cfg, consume=True,
+                                      tp_rank=tp_rank, tp=tp,
+                                      device=device), {}
     return cfg, hf.params_from_hf(state, cfg, consume=True), {}
+
+
+def _rank_device(device: str, rank: int):
+    """Rank ``rank``'s device: ``cuda:(rank % cards)``, or the CPU."""
+    import torch
+
+    from . import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def tp_engine(spec: Dict[str, Any], rank: int, conn=None):
+    """Rank ``rank``'s engine of the tensor-parallel group ``spec``
+    describes (``serve --tp``): joins the group, builds the mesh, loads the
+    rank's shard of the model and builds its engine, every rank with the
+    same arguments.  ``conn`` (the store) on rank 0 only."""
+    from .engine import InferenceEngine
+    from .kv import PagedCacheConfig
+    from .parallel import initialize, make_mesh
+
+    device = _rank_device(spec["device"], rank)
+    initialize(init_method=spec["init_method"], world_size=spec["tp"],
+               rank=rank, backend=spec["backend"])
+    mesh = make_mesh(tp=spec["tp"])
+    cfg, params, _ = load_model(spec["model"], device, seed=spec["seed"],
+                                tp_rank=rank, tp=spec["tp"])
+    pc = PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, n_blocks=spec["n_blocks"],
+        block_tokens=spec["block_tokens"], dtype=cfg.dtype,
+    )
+    return InferenceEngine(params, cfg, pc, conn=conn, mesh=mesh,
+                           device=device, **spec["engine"])
+
+
+def tp_follower(spec: Dict[str, Any], rank: int) -> None:
+    """A ``serve --tp`` follower process: its engine follows rank 0's ops
+    until rank 0 shuts the group down (or dies, which makes it raise)."""
+    tp_engine(spec, rank).follow()
+
+
+def spawn_followers(spec: Dict[str, Any]) -> list:
+    """Start ranks 1..tp-1 of ``spec`` (``torch.multiprocessing``, start
+    method ``spawn``), each running ``tp_follower``."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=tp_follower, args=(spec, r), daemon=True,
+                         name=f"istpu-tp-rank{r}")
+             for r in range(1, spec["tp"])]
+    for p in procs:
+        p.start()
+    return procs
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -2618,7 +2703,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--spec-g", type=int, default=2,
                     help="n-gram match width for --ngram-spec")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: only 1 is ported")
+                    help="tensor-parallel degree: serve on this many ranks "
+                         "(Megatron-sharded weights, head-sharded paged "
+                         "cache); this process is rank 0 and starts the "
+                         "others")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default="nccl",
+                    help="the --tp ranks' collectives: nccl (one card per "
+                         "rank, CUDA graphs capture the collectives) or "
+                         "gloo (on the host: ranks may share a card, or run "
+                         "on the CPU; graph bodies run eagerly)")
     ap.add_argument("--pp", type=int, default=1,
                     help="layer-sharding degree: only 1 is ported")
     ap.add_argument("--store-host", default=None,
@@ -2672,9 +2766,33 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
     Logger.set_log_level(args.log_level)
 
-    if args.tp != 1 or args.pp != 1:
-        raise SystemExit("--tp/--pp need parallel/, not ported yet "
-                         "(ROADMAP.md queue 1 item 5)")
+    if args.pp != 1:
+        raise SystemExit("--pp (layer-sharded weight streaming) is not "
+                         "ported yet (ROADMAP.md queue 1 item 5a)")
+    if args.tp < 1:
+        raise SystemExit("--tp must be >= 1")
+    if args.tp > 1:
+        # reject BEFORE building anything: mesh serving covers the
+        # built-in dense families, without speculation
+        if _is_moe_dir(args.model):
+            raise SystemExit("--tp mesh serving supports the built-in "
+                             "dense families")
+        if args.draft_model is not None or args.ngram_spec:
+            raise SystemExit("speculation under --tp is not ported yet "
+                             "(ROADMAP.md queue 1 item 5b)")
+        if args.device.startswith("cuda"):
+            import torch
+
+            if not torch.cuda.is_available():
+                raise SystemExit("--device cuda but no CUDA device")
+            cards = torch.cuda.device_count()
+            if args.dist_backend == "nccl" and args.tp > cards:
+                raise SystemExit(
+                    f"--tp {args.tp} over nccl needs a card per rank, have "
+                    f"{cards} (--dist-backend gloo lets ranks share one)")
+        elif args.dist_backend == "nccl":
+            raise SystemExit("--dist-backend nccl runs on CUDA devices; "
+                             "--device cpu takes --dist-backend gloo")
     endpoints_spec = args.store_endpoints or os.environ.get(
         "ISTPU_STORE_ENDPOINTS"
     )
@@ -2699,7 +2817,33 @@ def main(argv: Optional[List[str]] = None) -> None:
     from .kv import PagedCacheConfig
 
     device = resolve_device(args.device)
-    cfg, params, engine_fns = load_model(args.model, device)
+    followers: list = []
+    tp_spec = None
+    if args.tp > 1:
+        import tempfile
+
+        if device.type == "cuda":
+            from .ops import build
+
+            # once, here: the followers find the libraries built
+            build.build_all()
+        rdv = tempfile.mkdtemp(prefix="istpu-tp-")
+        tp_spec = {
+            "tp": args.tp, "backend": args.dist_backend,
+            "init_method": "file://" + os.path.join(rdv, "store"),
+            "device": args.device, "model": args.model, "seed": 0,
+            "n_blocks": args.n_blocks, "block_tokens": args.block_tokens,
+            "engine": dict(prefill_chunk=args.prefill_chunk,
+                           decode_chunk=args.decode_chunk,
+                           model_id=args.model,
+                           kv_quant=(None if args.kv_quant == "none"
+                                     else args.kv_quant),
+                           store_durability=args.store_durability),
+        }
+        followers = spawn_followers(tp_spec)
+        cfg, params, engine_fns = None, None, {}
+    else:
+        cfg, params, engine_fns = load_model(args.model, device)
     tokenizer = None
     tok_src = args.tokenizer or (
         args.model if args.model != "tiny" and any(
@@ -2719,11 +2863,6 @@ def main(argv: Optional[List[str]] = None) -> None:
             Logger.warn(
                 f"no usable tokenizer in {tok_src!r}; serving token ids only"
             )
-    pc = PagedCacheConfig(
-        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, n_blocks=args.n_blocks,
-        block_tokens=args.block_tokens, dtype=cfg.dtype,
-    )
     conn = None
     if endpoints:
         from .cluster import RoutedStorePool
@@ -2750,13 +2889,21 @@ def main(argv: Optional[List[str]] = None) -> None:
             op_timeout_s=args.store_op_timeout or None,
         ))
         conn.connect()
-    engine = InferenceEngine(params, cfg, pc, prefill_chunk=args.prefill_chunk,
-                             decode_chunk=args.decode_chunk, conn=conn,
-                             model_id=args.model,
-                             kv_quant=(None if args.kv_quant == "none"
-                                       else args.kv_quant),
-                             store_durability=args.store_durability,
-                             device=device, **engine_fns)
+    if tp_spec is not None:
+        engine = tp_engine(tp_spec, 0, conn=conn)
+        cfg = engine.cfg
+    else:
+        pc = PagedCacheConfig(
+            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, n_blocks=args.n_blocks,
+            block_tokens=args.block_tokens, dtype=cfg.dtype,
+        )
+        engine = InferenceEngine(
+            params, cfg, pc, prefill_chunk=args.prefill_chunk,
+            decode_chunk=args.decode_chunk, conn=conn, model_id=args.model,
+            kv_quant=(None if args.kv_quant == "none" else args.kv_quant),
+            store_durability=args.store_durability, device=device,
+            **engine_fns)
     draft_engine = None
     if args.draft_model is not None:
         # the draft proposes tokens the target verifies, so the vocabs must
@@ -2802,11 +2949,39 @@ def main(argv: Optional[List[str]] = None) -> None:
                     "answer flushed=false and decode workers recompute "
                     "(attach --store-host)")
     srv.start()
+    if not followers:
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            srv.close()
+        return
+    # rank 0 of a tensor-parallel group: SIGTERM (or ^C) shuts the
+    # followers down; a follower that dies ends the server non-zero
+    import signal
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+    dead = []
     try:
-        while True:
-            time.sleep(3600)
+        while not dead and not stop.wait(0.5):
+            dead = [p.name for p in followers if not p.is_alive()]
     except KeyboardInterrupt:
+        pass
+    finally:
         srv.close()
+        if not dead:
+            engine.shutdown_followers()
+        for p in followers:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        import shutil
+
+        shutil.rmtree(rdv, ignore_errors=True)  # the rendezvous file
+    if dead:
+        raise SystemExit(f"tensor-parallel rank(s) {dead} died")
 
 
 if __name__ == "__main__":

@@ -1508,3 +1508,99 @@ def test_serve_model_dir_on_the_card(dev, kind, tmp_path, monkeypatch):
     finally:
         srv.close()
         ca.reset_launches()
+
+
+# ---- tensor parallelism: two gloo ranks sharing the card ----
+
+def test_tp_compositions_on_one_card_build_nothing(dev, tmp_path):
+    """Two gloo ranks on the card, spawned after this process built the
+    kernels: each runs the three ``_tp`` compositions (K1, K3, K2) on its
+    head shard; the shards, concatenated, match the plain versions over
+    all heads, each rank launched each kernel once per call, and neither
+    rank started ``nvcc``."""
+    import tp_targets
+    from infinistore_tpu_torch.ops import build
+    from tp_world import run_world
+
+    build.build_all()
+    out = run_world(tp_targets.compositions_on_card, 2, tmp_path)
+    x = tp_targets.card_inputs(dev)
+    want = {
+        "decode": ca.paged_decode_attention_xla(*x["decode"]),
+        "causal": ca.causal_attention_xla(*x["causal"]),
+        "prefix": ca.causal_attention_xla(*x["prefix"], prefix_pad=256,
+                                          prefix_len=100),
+    }
+    for kind, dim in (("decode", 1), ("causal", 2), ("prefix", 2)):
+        got = torch.cat([o[0][kind] for o in out], dim=dim)
+        _close(got.to(dev), want[kind], torch.bfloat16)
+    for _outs, launches, nvcc in out:
+        assert launches["paged_decode"] == 1
+        assert launches["flash_causal"] == 1
+        assert launches["flash_prefix"] == 1
+        assert nvcc == 0
+
+
+def test_tp_push_lands_whole_pages_a_tp1_engine_loads(dev, tmp_path,
+                                                      store_port):
+    """A tp=2 group on the card (gloo ranks sharing it) pushes a prompt;
+    a tp=1 engine on the card adopts its chunks, and its cache holds
+    bitwise the pages the group gathered from its ranks."""
+    import tp_targets
+    from infinistore_tpu_torch import config as tconfig
+    from infinistore_tpu_torch import lib as tlib
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import TINY, init_params, \
+        params_from_jax
+    from tp_world import run_world
+
+    params = init_params(TINY, torch.Generator().manual_seed(3), "cpu")
+    tree = {"embed": params["embed"].float().numpy(),
+            "lm_head": params["lm_head"].float().numpy(),
+            "ln_out": params["ln_out"].float().numpy(),
+            "layers": {k: v.float().numpy()
+                       for k, v in params["layers"].items()}}
+    pc = PagedCacheConfig(n_layers=TINY.n_layers, n_kv_heads=TINY.n_kv_heads,
+                          head_dim=TINY.head_dim, n_blocks=64,
+                          block_tokens=16, dtype=TINY.dtype)
+    prompt = list(range(3, 103))
+    out = run_world(tp_targets.engine_world, 2, tmp_path, tree, TINY, pc,
+                    tp_targets.push_and_pages, {"kv_quant": None},
+                    store=(store_port, "shm", "tp-card"),
+                    script_kw={"prompt": prompt}, device="cuda")[0]
+    conn = tlib.InfinityConnection(tconfig.ClientConfig(
+        host_addr="127.0.0.1", service_port=store_port,
+        connection_type=tconfig.TYPE_SHM, log_level="warning"))
+    conn.connect()
+    try:
+        eng = InferenceEngine(params_from_jax(tree, TINY, dev), TINY, pc,
+                              conn=conn, kv_quant=None, model_id="tp-card",
+                              device=dev)
+        st = eng.prefill(prompt)
+        n = (len(prompt) - 1) // 16
+        assert st.store_chunks == n
+        got = eng.cache[:, :, :, torch.tensor(st.block_ids[:n], device=dev)]
+        want = torch.from_numpy(out["pages"][:, :, :, :n]).to(dev,
+                                                                TINY.dtype)
+        assert torch.equal(got, want)
+    finally:
+        conn.close()
+
+
+def test_serve_tp_over_nccl_needs_a_card_per_rank(dev):
+    """``serve --tp N`` over nccl (the default backend) with more ranks
+    than the machine has cards exits before starting any rank, naming
+    gloo as the way to share a card."""
+    import os
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count() + 1
+    r = subprocess.run(
+        [sys.executable, "-m", "infinistore_tpu_torch.serve", "--tp", str(n)],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "needs a card per rank" in r.stderr, r.stderr[-500:]
+    assert "gloo" in r.stderr
