@@ -138,32 +138,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    key's replay and the B=8 decode graph equal to their eager bodies, the
    decode step, a cold 1500-token prefill and their device time by kind,
    held bytes;
-7d. tp path (after the lora path, on its native store server):
-   tensor-parallel serving over ``torch.distributed``, each rank a
-   spawned process.  Two gloo ranks share cuda:0 (their collectives cross
-   the host, so its times are no tensor-parallel speed): each
-   ``_tp`` composition (K1 at the mixed batch, K3 at 2048 tokens, K2 at
-   1024/700/512) on its head shard of seeded bf16 inputs, gathered and
-   held against the plain version over all heads, each rank's launches
-   and median device ms beside the bound of its shard's work; then
-   Llama-3-8B at full width, each rank drawing only its shard of the
-   seeded weights, 8 requests through ``Scheduler`` on rank 0 (first-token
-   logits and every token against this process's tp=1 engine by the rank
-   rule, each rank's K1/K2/K3 launches and held bytes, the ranks' sampled
-   tokens equal, no rank compiling a kernel), the eager B=8 step, a cold
-   and an adopted 1500-token prefill; the store hop both ways (pages
-   bitwise equal); NCCL at world size 1 with the decode chunks replayed
-   as CUDA graphs (tokens equal to the plain engine's; tp=2 over NCCL only
-   with two cards); and ``serve --model tiny --tp 2 --dist-backend gloo``
-   as a subprocess (3 completions, both ranks' K1/K2/K3, nothing left
-   after SIGTERM);
+7d. multi-device paths (after the lora path, on its native store
+   server), each rank a spawned process.  Two gloo ranks share cuda:0
+   (their collectives cross the host, so these times are no multi-device
+   speed).  The tp=2 group: each ``_tp`` composition (K1 at the mixed
+   batch, K3 at 2048 tokens, K2 at 1024/700/512) on its head shard of
+   seeded bf16 inputs, gathered and held against the plain version over
+   all heads, each rank's launches and median device ms beside the bound
+   of its shard's work; then Llama-3-8B at full width, each rank drawing
+   only its shard of the seeded weights, 8 requests through ``Scheduler``
+   on rank 0 (first-token logits and every token against this process's
+   tp=1 engine by the rank rule, each rank's K1/K2/K3 launches and held
+   bytes, the ranks' sampled tokens equal, no rank compiling a kernel),
+   the eager B=8 step, a cold and an adopted 1500-token prefill; the
+   speculation leg on that target (B=1, k=4, ``SPEC_TP_NEW`` tokens: plain
+   decode, n-gram (g=2) and the leader's unsharded self-draft, each by the
+   rank rule against plain tp=2 decode, acceptance and ms/token, K1/K2/K3
+   on every rank); the lora phase's bank (each rank drawing its shard),
+   the 8 lora requests over adapters 0-4 against a tp=1 engine with the
+   same bank (first-token logits per adapter, every token by the rank
+   rule in the tp=1 engine's logits teacher-forced along it); the store
+   hop both ways (pages bitwise equal).  The pp=2 group: the same serving
+   run and store hop with each rank holding 16 of the 32 layers.  sp=2:
+   one 1500-token prefill by ring attention (each rank the whole model),
+   logits and KV against tp=1, the KV adopted into a tp=1 engine decoding
+   ``SP_NEW`` tokens by the rank rule.  Then NCCL at world size 1 with the
+   decode chunks and the speculation rounds replayed as CUDA graphs
+   (tokens equal to the plain engine's; tp=2 and pp=2 over NCCL only with
+   two cards), and ``serve --model tiny --tp 2 --dist-backend gloo`` as a
+   subprocess (3 completions, both ranks' K1/K2/K3, nothing left after
+   SIGTERM);
 8. the ``kernels`` line: one JSON object with every kernel's numbers, each
    kernel's launches counted over the path that runs it, and its launches
    on the speculation path's timed runs (``spec_launches``), the lora path
    (``lora_launches``), the cluster path (``cluster_launches``), the moe
-   path (``moe_launches``) and the tp path (``tp_launches``, summed over
-   its ranks); and the two tensor-parallel compositions (the second also
-   in its ``prefix_len`` form), timed on one rank's head shard.
+   path (``moe_launches``) and the multi-device paths, each summed over
+   its ranks (``tp_launches``, ``spec_tp_launches``, ``lora_tp_launches``,
+   ``pp_launches``, ``sp_launches``: the sp path's are the adopted
+   decode's, ring attention being plain PyTorch); and the two
+   tensor-parallel compositions (the second also in its ``prefix_len``
+   form), timed on one rank's head shard.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -630,9 +644,9 @@ def llama3_8b(torch, dev):
     return params, cfg, pc
 
 
-def logits_agree(torch, got, want, what: str, max_err: bool = True) -> None:
+def logits_agree(torch, got, want, what: str, max_err: bool = True) -> float:
     """Cosine >= 0.999 and (with ``max_err``) max error <= 2e-2 *
-    max|logit|."""
+    max|logit|; returns the max error."""
     got, want = got.float(), want.float()
     cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
     err = (got - want).abs().max().item()
@@ -643,6 +657,7 @@ def logits_agree(torch, got, want, what: str, max_err: bool = True) -> None:
           f"({bound})")
     check(cos >= 0.999 and (not max_err or err <= 2e-2 * scale),
           f"{what}: logits disagree")
+    return err
 
 
 def phase_model(torch, ca, bench_gpu, dev, card: str, params, cfg, pc):
@@ -3183,34 +3198,45 @@ def _tp_compositions(torch, rank: int, world: int, dev) -> dict:
     return rec
 
 
-def _tp_serve_task(rank: int, world: int, reqs, p_cold, p1, p1_digest, p2,
-                   store_port: int) -> dict:
-    """The tp phase's two-rank world over gloo on one card: the
-    compositions, then Llama-3-8B (every rank drawing only its shard of the
-    seeded weights) serving ``reqs`` through ``Scheduler`` on rank 0, its
-    first-token logits, the eager decode step and a cold prefill; then an
-    engine on the native store adopting ``p1`` (pages gathered over the
-    ranks, their digest against ``p1_digest``) and pushing ``p2``.
-    Returns rank 0's numbers."""
+def _group_serve_task(rank: int, world: int, mesh_kw, reqs, p_cold, p1,
+                      p1_digest, p2, store_port: int, spec_prompt=None,
+                      lora_reqs=None) -> dict:
+    """One rank of a two-rank serving group over gloo on one card
+    (``mesh_kw``: ``{"tp": 2}`` or ``{"pp": 2}``): on a tp group the
+    compositions first; then Llama-3-8B (every rank drawing only its shard
+    of the seeded weights: its heads, or its stage's 16 layers) serving
+    ``reqs`` through ``Scheduler`` on rank 0, its first-token logits, the
+    eager decode step and a cold prefill; with ``spec_prompt``, the
+    speculation leg on that engine (plain, n-gram and the leader's
+    unsharded self-draft, B=1, k=4); with ``lora_reqs``, the lora phase's
+    bank (each rank drawing its shard) serving them; then an engine on the
+    native store adopting ``p1`` (pages gathered over the ranks, their
+    digest against ``p1_digest``) and pushing ``p2``.  Returns rank 0's
+    numbers."""
     import torch
 
     from infinistore_tpu_torch import lib as ist
     from infinistore_tpu_torch.engine import InferenceEngine
     from infinistore_tpu_torch.kv import PagedCacheConfig
     from infinistore_tpu_torch.models import LLAMA3_8B, init_params
+    from infinistore_tpu_torch.models.lora import init_lora_bank
     from infinistore_tpu_torch.ops import build
     from infinistore_tpu_torch.parallel import make_mesh
 
     dev = torch.device("cuda", rank % torch.cuda.device_count())
-    out = {"compositions": _tp_compositions(torch, rank, world, dev),
-           "nvcc_runs_at_start": build.NVCC_RUNS}
+    out = {"nvcc_runs_at_start": build.NVCC_RUNS}
+    if mesh_kw.get("tp", 1) > 1:
+        out["compositions"] = _tp_compositions(torch, rank, world, dev)
+    mesh = make_mesh(**mesh_kw)
+    shard = dict(tp_rank=mesh.get_local_rank("tp"), tp=mesh["tp"].size(),
+                 pp_rank=mesh.get_local_rank("pp"), pp=mesh["pp"].size())
     cfg = LLAMA3_8B
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev, tp_rank=rank, tp=world)
+                         dev, **shard)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     # the draw's device peak above what the rank held before it, and the
@@ -3220,21 +3246,52 @@ def _tp_serve_task(rank: int, world: int, reqs, p_cold, p1, p1_digest, p2,
         t.numel() * t.element_size() for t in [
             params["embed"], params["lm_head"], params["ln_out"],
             *params["layers"].values()])
-    mesh = make_mesh(tp=world)
     pc = PagedCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
                           head_dim=cfg.head_dim, n_blocks=1024,
                           block_tokens=16, dtype=cfg.dtype)
-    engine = InferenceEngine(params, cfg, pc, mesh=mesh, device=dev,
-                             prefill_chunk=512)
-    if rank != 0:
-        engine.follow()
-    else:
-        try:
-            out.update(_tp_leader_serving(torch, engine, reqs, p_cold))
-        finally:
-            engine.shutdown_followers()
-    del engine
-    torch.cuda.empty_cache()
+
+    def group_engine(run, **kw):
+        """An engine of the group: rank 0 runs ``run(engine)`` into
+        ``out``, the others follow."""
+        engine = InferenceEngine(params, cfg, pc, mesh=mesh, device=dev,
+                                 prefill_chunk=512, **kw)
+        if rank != 0:
+            engine.follow()
+        else:
+            try:
+                out.update(run(engine))
+            finally:
+                engine.shutdown_followers()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def serving(engine):
+        res = _tp_leader_serving(torch, engine, reqs, p_cold)
+        if spec_prompt is not None:
+            res["spec"] = _group_leader_spec(torch, engine, cfg, pc, dev,
+                                             spec_prompt)
+        return res
+
+    group_engine(serving)
+    if lora_reqs is not None:
+        bank = init_lora_bank(cfg, ["a1", "a2", "a3", "a4"], 16,
+                              torch.Generator(device=dev).manual_seed(7),
+                              dev, init_scale=0.05, **shard)
+        def lora_leg(e):
+            res = _tp_leader_serving(torch, e, [p for p, _a in lora_reqs],
+                                     None, [a for _p, a in lora_reqs])
+            res["logits_prompt"] = lora_reqs[4][0]
+            res["first_logits_by_adapter"] = []
+            for a in range(e.lora.n_adapters):
+                st = e.prefill(res["logits_prompt"], adapter_id=a)
+                res["first_logits_by_adapter"].append(
+                    st.last_logits.float().cpu())
+                e.release(st)
+            return {"lora": res}
+
+        group_engine(lora_leg, lora=bank)
+        del bank
     conn = None
     if rank == 0:
         conn = ist.InfinityConnection(ist.ClientConfig(
@@ -3256,8 +3313,18 @@ def _tp_serve_task(rank: int, world: int, reqs, p_cold, p1, p1_digest, p2,
     return out
 
 
-def _tp_leader_serving(torch, engine, reqs, p_cold) -> dict:
-    """Rank 0's serving run (see ``_tp_serve_task``)."""
+def _rank_launches(after, before) -> list:
+    """Each rank's kernel launches between two ``tp_report``s."""
+    return [{k: a["kernel_launches"][k] - b["kernel_launches"][k]
+             for k in a["kernel_launches"]} for a, b in zip(after, before)]
+
+
+def _tp_leader_serving(torch, engine, reqs, p_cold, adapters=None) -> dict:
+    """Rank 0's serving run (see ``_group_serve_task``): ``reqs`` (on
+    ``adapters``, default the base) through ``Scheduler``, each rank's
+    launches counted from the run's start; with ``p_cold``, then the
+    first request's first-token logits, the B=8 eager decode step and a
+    cold prefill of ``p_cold``."""
     from infinistore_tpu_torch.engine import Scheduler
     from infinistore_tpu_torch.utils.metrics import MetricsRegistry
 
@@ -3267,7 +3334,8 @@ def _tp_leader_serving(torch, engine, reqs, p_cold) -> dict:
     sched = Scheduler(engine, max_batch=8, metrics=MetricsRegistry())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids = [sched.submit(p, TP_NEW) for p in reqs]
+    ids = [sched.submit(p, TP_NEW, adapter_id=a) for p, a in
+           zip(reqs, adapters or [0] * len(reqs))]
     done = {}
     while sched.has_work:
         for r in sched.step():
@@ -3276,15 +3344,16 @@ def _tp_leader_serving(torch, engine, reqs, p_cold) -> dict:
     out["serve_s"] = time.perf_counter() - t0
     after = engine.tp_report()
     out["outputs"] = [done[i].output for i in ids]
-    out["rank_launches"] = [
-        {k: a["kernel_launches"][k] - b["kernel_launches"][k]
-         for k in a["kernel_launches"]} for a, b in zip(after, before)]
+    out["rank_launches"] = _rank_launches(after, before)
     out["held_bytes"] = [a["held_bytes"] for a in after]
+    out["layers"] = [a["layers"] for a in after]
     out["ranks_agree"] = all(a["tokens"] == after[0]["tokens"]
                              for a in after)
     out["backend"] = after[0]["backend"]
     out["cuda_graphs"] = [a["cuda_graphs"] for a in after]
     out["nvcc_runs"] = [a["nvcc_runs"] for a in after]
+    if p_cold is None:
+        return out
     # the first request's first-token logits, and the B=8 eager decode step
     st = engine.prefill(reqs[0])
     out["first_logits"] = st.last_logits.float().cpu()
@@ -3303,6 +3372,103 @@ def _tp_leader_serving(torch, engine, reqs, p_cold) -> dict:
     torch.cuda.synchronize()
     out["cold_prefill_ms"] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+SPEC_TP_NEW = 64  # greedy tokens of the speculation leg under tp
+
+
+def _group_leader_spec(torch, engine, cfg, pc, dev, p) -> dict:
+    """Rank 0's speculation leg on the group's target (see
+    ``_group_serve_task``): ``SPEC_TP_NEW`` greedy tokens after ``p`` by
+    plain decode, by the n-gram speculator (k=4, g=2) and by the
+    self-draft (the leader's own unsharded Llama-3-8B, drawn here from
+    the same seed, k=4), each timed after its prefill; every rank's
+    launches over the leg."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.engine.ngram import NgramSpeculator
+    from infinistore_tpu_torch.engine.speculative import SpeculativeDecoder
+    from infinistore_tpu_torch.models import init_params
+
+    out = {}
+    before = engine.tp_report()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out[name + "_ms_per_token"] = (
+            (time.perf_counter() - t0) * 1e3 / SPEC_TP_NEW)
+
+    st = engine.prefill(p)
+    timed("plain", lambda: engine.decode(st, SPEC_TP_NEW))
+    engine.release(st)
+    ng = NgramSpeculator(engine, 4, 2)
+    st = ng.prefill(p)
+    timed("ngram", lambda: ng.decode(st, SPEC_TP_NEW))
+    engine.release(st)
+    out["ngram_acceptance"] = ng.acceptance_rate
+    out["ngram_rounds"] = ng.rounds
+    draft = InferenceEngine(
+        init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+        cfg, dataclasses.replace(pc, n_blocks=256), device=dev,
+        prefill_chunk=512)
+    out["draft_launches"] = _count_own_launches(draft)
+    sd = SpeculativeDecoder(engine, draft, 4)
+    st_t, st_d = sd.prefill(p)
+    timed("draft", lambda: sd.decode(st_t, st_d, SPEC_TP_NEW))
+    out["draft_acceptance"] = sd.acceptance_rate
+    out["draft_rounds"] = sd.rounds
+    out["rank_launches"] = _rank_launches(engine.tp_report(), before)
+    # the sharded target's own: the leader's less its draft's, the
+    # followers' whole (they run no draft)
+    lead = out["rank_launches"][0]
+    out["target_launches"] = [
+        {k: lead[k] - out["draft_launches"][k] for k in lead},
+        *out["rank_launches"][1:]]
+    engine.release(st_t)
+    del draft, sd, st_d
+    return out
+
+
+def _count_own_launches(engine) -> dict:
+    """Counts the kernel launches made inside ``engine``'s own calls from
+    here on: each method and function attribute of the instance is
+    wrapped to add the launches its outermost call makes.  The speculation
+    leg's leader launches its unsharded draft's kernels and its target's
+    shard's from one thread, so the per-thread counts cannot tell them
+    apart."""
+    import functools
+    import inspect
+
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    counts = dict.fromkeys(ca.KERNELS, 0)
+    depth = [0]
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            before = dict(ca.LAUNCHES)
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                for k, v in ca.LAUNCHES.items():
+                    counts[k] += v - before[k]
+        return counted
+
+    for name in dir(type(engine)):
+        if not name.startswith("__") and inspect.isfunction(
+                inspect.getattr_static(type(engine), name)):
+            setattr(engine, name, wrap(getattr(engine, name)))
+    for name, v in list(vars(engine).items()):
+        if isinstance(v, functools.partial):
+            setattr(engine, name, wrap(v))
+    return counts
 
 
 def _tp_leader_store(torch, b, p1, p1_digest, p2) -> dict:
@@ -3328,13 +3494,17 @@ def _tp_leader_store(torch, b, p1, p1_digest, p2) -> dict:
 
 
 def _tp_nccl_task(rank: int, world: int, prompts) -> dict:
-    """Tensor parallelism over NCCL with the decode chunks replayed as CUDA
-    graphs (the collectives captured inside): Llama-3-8B through a mesh
-    engine and, on rank 0, the plain single-rank engine on the same weights;
-    returns both engines' greedy tokens (rank 0)."""
+    """Tensor parallelism over NCCL with the decode chunks and the
+    speculation rounds replayed as CUDA graphs (the collectives captured
+    inside): Llama-3-8B through a mesh engine and, on rank 0, the plain
+    single-rank engine on the same weights; the greedy tokens of both, and
+    at world size 1 both engines' n-gram and self-draft speculation (the
+    draft the plain engine's weights, unsharded; rank 0)."""
     import torch
 
     from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.engine.ngram import NgramSpeculator
+    from infinistore_tpu_torch.engine.speculative import SpeculativeDecoder
     from infinistore_tpu_torch.kv import PagedCacheConfig
     from infinistore_tpu_torch.models import LLAMA3_8B, init_params
     from infinistore_tpu_torch.parallel import make_mesh, shard_params
@@ -3354,21 +3524,39 @@ def _tp_nccl_task(rank: int, world: int, prompts) -> dict:
     if rank != 0:
         eng.follow()
         return {}
+
+    def spec_runs(target, draft):
+        ng = NgramSpeculator(target, 4, 2)
+        sd = SpeculativeDecoder(target, draft, 4)
+        return {"ngram": ng.generate(prompts[0], TP_NEW),
+                "draft": sd.generate(prompts[1], TP_NEW)}
+
     try:
         states = [eng.prefill(p) for p in prompts]
         got = eng.decode_batch(states, TP_NEW)
+        for st in states:
+            eng.release(st)
         rep = eng.tp_report()
-        res = {"tp": got, "replays": dict(eng.graph_replays),
-               "captures": dict(eng.graph_captures),
-               "backend": rep[0]["backend"],
+        res = {"tp": got, "backend": rep[0]["backend"],
                "cuda_graphs": [r["cuda_graphs"] for r in rep]}
+        if world == 1:
+            draft = InferenceEngine(full, cfg, pc, device=dev,
+                                    prefill_chunk=512)
+            res["spec_tp"] = spec_runs(eng, draft)
+            del draft
+        res["replays"] = dict(eng.graph_replays)
+        res["captures"] = dict(eng.graph_captures)
     finally:
         eng.shutdown_followers()
     del eng
+    gc.collect()
     plain = InferenceEngine(full, cfg, pc, device=dev, prefill_chunk=512)
     res["plain"] = plain.decode_batch([plain.prefill(p) for p in prompts],
                                       TP_NEW)
     res["plain_replays"] = dict(plain.graph_replays)
+    if world == 1:
+        draft = InferenceEngine(full, cfg, pc, device=dev, prefill_chunk=512)
+        res["spec_plain"] = spec_runs(plain, draft)
     return res
 
 
@@ -3469,7 +3657,7 @@ def _tp_serve_cli(torch, card: str, proc, port: int, t0: float) -> None:
 
 
 def rank_rule(torch, forward, params, cfg, dev, p, got, want,
-              what: str) -> None:
+              what: str, f32: bool = True) -> None:
     """The rank rule for a bf16 path whose sums run in another order than
     the reference's: each token of ``got`` that differs from ``want`` (the
     reference path's own tokens after prompt ``p``) ranks within the top 2
@@ -3478,50 +3666,58 @@ def rank_rule(torch, forward, params, cfg, dev, p, got, want,
     best there.  Ranks count the distinct bf16 logit values above the
     token's: tokens whose logits are equal in bf16 share a rank, since the
     teacher-forced prefill cannot order them (TINY's random logits tie so;
-    the top 4 in f32 are printed beside them)."""
+    with ``f32``, the top 4 of a float32 copy of the model are printed
+    beside them: leave it off for a model whose float32 copy the card
+    cannot hold beside it)."""
     with torch.no_grad():
         logits, _ = forward(params, cfg, torch.tensor([p + got], device=dev))
     rows = logits[0, len(p) - 1:len(p) - 1 + len(got)].float()
     diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
     ranks, gaps = [], []
-    p32 = {k: (v.float() if torch.is_tensor(v) else
-               {kk: vv.float() for kk, vv in v.items()})
-           for k, v in params.items()}
-    with torch.no_grad():
-        l32, _ = forward(p32, dataclasses.replace(cfg, dtype=torch.float32),
-                         torch.tensor([p + got], device=dev))
-    rows32 = l32[0, len(p) - 1:len(p) - 1 + len(got)]
+    rows32 = None
+    if f32 and diff:
+        p32 = {k: (v.float() if torch.is_tensor(v) else
+                   {kk: vv.float() for kk, vv in v.items()})
+               for k, v in params.items()}
+        with torch.no_grad():
+            l32, _ = forward(p32, dataclasses.replace(cfg,
+                                                      dtype=torch.float32),
+                             torch.tensor([p + got], device=dev))
+        rows32 = l32[0, len(p) - 1:len(p) - 1 + len(got)]
     for j in diff:
         row, mine = rows[j], rows[j, got[j]]
         ranks.append(int((row.unique() > mine).sum()))
         gaps.append(((row.max() - mine) / row.max().abs()).item())
         top = torch.topk(row, 4)
-        top32 = torch.topk(rows32[j], 4)
-        print(f"{what}: position {j}: served {got[j]}, reference path "
-              f"{want[j]}; teacher-forced top 4 {top.indices.tolist()} "
-              f"{[round(v, 5) for v in top.values.tolist()]}; in f32 "
-              f"{top32.indices.tolist()} "
-              f"{[round(v, 5) for v in top32.values.tolist()]}")
+        line = (f"{what}: position {j}: served {got[j]}, reference path "
+                f"{want[j]}; teacher-forced top 4 {top.indices.tolist()} "
+                f"{[round(v, 5) for v in top.values.tolist()]}")
+        if rows32 is not None:
+            top32 = torch.topk(rows32[j], 4)
+            line += (f"; in f32 {top32.indices.tolist()} "
+                     f"{[round(v, 5) for v in top32.values.tolist()]}")
+        print(line)
     print(f"{what}: {len(got) - len(diff)}/{len(got)} tokens equal; the "
           f"differing ones rank {ranks} in the teacher-forced prefill, "
           f"relative gaps {[round(g, 4) for g in gaps]}")
-    check(all(r < 2 for r in ranks) and all(g <= TOL["bfloat16"]
-                                            for g in gaps),
+    check(all(r < 2 for r in ranks)
+          and all(g <= TOL["bfloat16"] for g in gaps),
           f"{what}: a differing token breaks the rank rule (top 2, gap <= "
           f"{TOL['bfloat16']})")
 
 
 def phase_tp(torch, ca, dev, params, cfg, pc, card: str,
              store_port: int) -> dict:
-    """Tensor-parallel serving on the card (module docstring, phase 8);
-    returns the composition records and the tp serving path's launches
-    summed over its ranks."""
+    """Multi-device serving on the card (module docstring, phase 7d): the
+    tp=2 group (its compositions, serving, speculation and lora legs, the
+    store hop), the pp=2 group (serving, the store hop), sp=2 prefill,
+    NCCL at world size 1 and ``serve --tp 2``.  Returns the composition
+    records and each path's launches summed over its ranks."""
     from infinistore_tpu_torch.engine import InferenceEngine
-    from infinistore_tpu_torch.models import prefill_forward
 
     t_phase = time.perf_counter()
     print(f"[tp] backend gloo: two ranks share cuda:0 and their collectives "
-          f"cross the host, so the phase's times are no tensor-parallel "
+          f"cross the host, so the phase's times are no multi-device "
           f"speed (the smoke at {time.perf_counter() - T_START:.1f} s)")
     rng = torch.Generator().manual_seed(1212)
 
@@ -3532,8 +3728,14 @@ def phase_tp(torch, ca, dev, params, cfg, pc, card: str,
     reqs = [prompt(64), prompt(200), shared + prompt(300),
             shared + prompt(100), prompt(1500), prompt(350), prompt(1000),
             prompt(130)]
-    p_cold, p1, p2 = prompt(1500), prompt(1500), prompt(1500)
-    # engine A (tp=1, this process) pushes p1 for the tp group to adopt
+    p_cold, p1, p2, p3 = prompt(1500), prompt(1500), prompt(1500), \
+        prompt(1500)
+    p_spec = prompt(600)
+    lrng = torch.Generator().manual_seed(4343)
+    lora_reqs = [(torch.randint(0, cfg.vocab_size, (n,),
+                                generator=lrng).tolist(), a)
+                 for n, a in zip(LORA_LENGTHS, LORA_ADAPTERS)]
+    # engine A (tp=1, this process) pushes p1 for the groups to adopt
     from infinistore_tpu_torch import lib as ist
 
     conn = ist.InfinityConnection(ist.ClientConfig(
@@ -3548,88 +3750,52 @@ def phase_tp(torch, ca, dev, params, cfg, pc, card: str,
     p1_digest = _pages_digest(a.cache[:, :, :, torch.tensor(
         sa.block_ids[:n1], device=dev)])
     a_tokens = a.decode(sa, 16)
-    t_world = time.perf_counter()
-    res = _tp_world(_tp_serve_task, 2, "gloo", reqs=reqs, p_cold=p_cold,
-                    p1=p1, p1_digest=p1_digest, p2=p2,
-                    store_port=store_port)[0]
-    world_s = time.perf_counter() - t_world
-    gib = 2 ** 30
+    print(f"[tp] A (tp=1) pushed p1's {n1} chunks; its tokens "
+          f"{a_tokens[:6]}...")
+    del a, sa
+    gc.collect()
+    torch.cuda.empty_cache()
     full = sum(t.numel() * t.element_size() for t in [
         params["embed"], params["lm_head"], params["ln_out"],
         *params["layers"].values()])
-    print(f"[tp] the two-rank world ran in {world_s:.1f} s; rank 0 drew its "
-          f"{res['shard_bytes'] / gib:.2f} GiB shard of the 8B weights in "
-          f"{res['init_s']:.1f} s at a device peak of "
-          f"{res['init_peak'] / gib:.2f} GiB (the whole model: "
-          f"{full / gib:.2f} GiB); backend {res['backend']}, CUDA graphs per "
-          f"rank {res['cuda_graphs']}, nvcc runs per rank {res['nvcc_runs']}")
-    check(res["init_peak"] < full, "a rank's weight draw held the whole "
-          "model on the card")
-    check(res["nvcc_runs"] == [0, 0],
-          f"a rank compiled kernels the leader had built: {res['nvcc_runs']}")
-    # full width at tp=2 against tp=1 on the same weights
-    mib = 2 ** 20
-    print(f"[tp] Llama-3-8B tp=2: 8 requests x {TP_NEW} greedy tokens in "
-          f"{res['serve_s']:.2f} s; per rank launches "
-          f"{res['rank_launches']}; held_bytes per rank "
-          f"{[round(b / mib, 1) for b in res['held_bytes']]} MiB; ranks "
-          f"agree on every sampled token: {res['ranks_agree']}")
-    check(res["ranks_agree"], "the tp ranks sampled different tokens")
-    for r, counts in enumerate(res["rank_launches"]):
-        check(all(counts[k] > 0 for k in ("paged_decode", "flash_causal",
-                                          "flash_prefix")),
-              f"tp rank {r} did not launch K1, K2 and K3: {counts}")
-    ref = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
-                          prefill_chunk=512)
-    st = ref.prefill(reqs[0])
-    logits_agree(torch, res["first_logits"].to(dev), st.last_logits,
-                 "[tp] first-token logits, tp=2 vs tp=1")
-    ref.release(st)
-    for p, o in zip(reqs, res["outputs"]):
-        check(len(o) == TP_NEW, f"a tp request returned {len(o)} tokens")
-        teacher_forced(torch, prefill_forward, params, cfg, dev, p, o,
-                       f"[tp] tp=2 tokens, {len(p)}-token prompt",
-                       within_top=2)
-    print(f"[tp] tp=2 (gloo, eager, one card): B=8 decode step "
-          f"{res['decode_step_ms']:.3f} ms; cold 1500-token prefill "
-          f"{res['cold_prefill_ms']:.3f} ms; adopted 1500-token prefill "
-          f"(93 chunks from the native store) {res['adopt_ms']:.3f} ms "
-          f"({card})")
-    # the store hop both ways, whole pages bitwise
-    check(res["p1_store_chunks"] == n1 and res["p1_pages_equal"],
-          f"tp=2 adopted {res['p1_store_chunks']} chunks of p1 (want {n1}), "
-          f"pages bitwise equal to A's: {res['p1_pages_equal']}")
-    teacher_forced(torch, prefill_forward, params, cfg, dev, p1,
-                   res["p1_tokens"], "[tp] tp=2 tokens after adopting A's "
-                   "pages", within_top=2)
-    c = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
-                        conn=conn, kv_quant=None, model_id="tp-smoke",
-                        prefill_chunk=512)
-    sc = c.prefill(p2)
-    n2 = (len(p2) - 1) // pc.block_tokens
-    check(sc.store_chunks == n2,
-          f"C adopted {sc.store_chunks} of the tp=2 push's {n2} chunks")
-    c_same = _pages_digest(c.cache[:, :, :, torch.tensor(
-        sc.block_ids[:n2], device=dev)]) == res["p2_digest"]
-    print(f"[tp] store hop: the tp=2 group adopted A's {n1} chunks, pages "
-          f"bitwise equal {res['p1_pages_equal']}; tp=1 C adopted the tp=2 "
-          f"group's {n2} chunks, pages bitwise equal {c_same}; A's tokens "
-          f"{a_tokens[:6]}..., the group's {res['p1_tokens'][:6]}...")
-    check(c_same, "C's adopted pages differ from the pages the tp=2 group "
-          "pushed")
-    teacher_forced(torch, prefill_forward, params, cfg, dev, p2,
-                   res["p2_tokens"], "[tp] tp=2 tokens of its pushed prompt",
-                   within_top=2)
-    teacher_forced(torch, prefill_forward, params, cfg, dev, p2,
-                   c.decode(sc, 16), "[tp] tp=1 C's tokens after adopting "
-                   "the group's pages", within_top=2)
+    common = dict(reqs=reqs, p_cold=p_cold, p1=p1, p1_digest=p1_digest,
+                  store_port=store_port)
+    out = {"launches": {}}
+    # the tp=2 group, with the speculation and lora legs
+    t_world = time.perf_counter()
+    res = _tp_world(_group_serve_task, 2, "gloo", mesh_kw={"tp": 2}, p2=p2,
+                    spec_prompt=p_spec, lora_reqs=lora_reqs, **common)[0]
+    _check_group(torch, "tp=2", res, time.perf_counter() - t_world, full,
+                 params, cfg, pc, dev, card, conn, reqs, p1, n1, p2)
+    out["compositions"] = res["compositions"]
+    out["launches"]["tp"] = _summed(res["rank_launches"])
+    out["launches"]["spec_tp"] = _check_spec_tp(torch, res["spec"], params,
+                                                cfg, dev, p_spec, card)
+    # the compositions' launches on the spec path: the target's alone,
+    # measured on each rank
+    out["target_launches"] = {
+        "spec_tp": _summed(res["spec"]["target_launches"])}
+    out["launches"]["lora_tp"] = _check_lora_tp(torch, ca, res["lora"],
+                                                params, cfg, pc, dev,
+                                                lora_reqs)
+    del res
+    # the pp=2 group: each stage 16 layers, pushing a prompt of its own
+    t_world = time.perf_counter()
+    res = _tp_world(_group_serve_task, 2, "gloo", mesh_kw={"pp": 2}, p2=p3,
+                    **common)[0]
+    _check_group(torch, "pp=2", res, time.perf_counter() - t_world, full,
+                 params, cfg, pc, dev, card, conn, reqs, p1, n1, p3)
+    out["launches"]["pp"] = _summed(res["rank_launches"])
     conn.close()
-    del a, c, ref, sa, sc, st
+    del res
     gc.collect()
     torch.cuda.empty_cache()
+    out["launches"]["sp"] = _sp_leg(torch, params, cfg, pc, dev, card,
+                                    prompt(1500))
     # captured collectives: NCCL at world size 1 (and 2 where the machine
-    # has two cards) with the decode chunks replayed as CUDA graphs, while
-    # the serve --tp 2 subprocess comes up (both legs check results only)
+    # has two cards) with the decode chunks and speculation rounds
+    # replayed as CUDA graphs, while the serve --tp 2 subprocess comes up
+    # (both legs check results only)
     cli = _tp_serve_cli_start()
     try:
         _tp_nccl_legs(torch, params, cfg, dev, [reqs[0], reqs[1], reqs[5],
@@ -3639,11 +3805,343 @@ def phase_tp(torch, ca, dev, params, cfg, pc, card: str,
         cli[0].wait()
         raise
     _tp_serve_cli(torch, card, *cli)
-    out = {"compositions": res["compositions"],
-           "launches": {k: sum(r[k] for r in res["rank_launches"])
-                        for k in res["rank_launches"][0]}}
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _summed(rank_launches) -> dict:
+    """Launches summed over a path's ranks."""
+    return {k: sum(r[k] for r in rank_launches) for k in rank_launches[0]}
+
+
+def _check_ranks_launched(rank_launches, what: str,
+                          kernels=("paged_decode", "flash_causal",
+                                   "flash_prefix")) -> None:
+    for r, counts in enumerate(rank_launches):
+        check(all(counts[k] > 0 for k in kernels),
+              f"{what}: rank {r} did not launch {kernels}: {counts}")
+
+
+def _check_group(torch, label, res, world_s, full, params, cfg, pc, dev,
+                 card, conn, reqs, p1, n1, p_push) -> None:
+    """A serving group's results (see ``_group_serve_task``) against this
+    process's tp=1 engine and weights: every rank's weight draw and
+    shard, its K1/K2/K3 launches, the ranks' sampled tokens equal, the
+    first-token logits, every token by the rank rule, the store hop both
+    ways with pages bitwise equal."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import prefill_forward
+
+    tag = f"[{label.split('=')[0]}]"
+    gib, mib = 2 ** 30, 2 ** 20
+    print(f"{tag} the two-rank {label} group ran in {world_s:.1f} s; rank 0 "
+          f"drew its {res['shard_bytes'] / gib:.2f} GiB shard of the 8B "
+          f"weights in {res['init_s']:.1f} s at a device peak of "
+          f"{res['init_peak'] / gib:.2f} GiB (the whole model: "
+          f"{full / gib:.2f} GiB); backend {res['backend']}, CUDA graphs per "
+          f"rank {res['cuda_graphs']}, nvcc runs per rank {res['nvcc_runs']}")
+    check(res["init_peak"] < full, f"{tag} a rank's weight draw held the "
+          f"whole model on the card")
+    check(res["nvcc_runs"] == [0, 0],
+          f"{tag} a rank compiled kernels the leader had built: "
+          f"{res['nvcc_runs']}")
+    print(f"{tag} Llama-3-8B {label}: 8 requests x {TP_NEW} greedy tokens in "
+          f"{res['serve_s']:.2f} s; per rank launches "
+          f"{res['rank_launches']}; layers per rank {res['layers']}; "
+          f"held_bytes per rank "
+          f"{[round(b / mib, 1) for b in res['held_bytes']]} MiB; ranks "
+          f"agree on every sampled token: {res['ranks_agree']}")
+    check(res["ranks_agree"], f"{tag} the ranks sampled different tokens")
+    _check_ranks_launched(res["rank_launches"], f"{tag} serving")
+    ref = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                          prefill_chunk=512)
+    st = ref.prefill(reqs[0])
+    logits_agree(torch, res["first_logits"].to(dev), st.last_logits,
+                 f"{tag} first-token logits, {label} vs tp=1")
+    ref.release(st)
+    del ref
+    for p, o in zip(reqs, res["outputs"]):
+        check(len(o) == TP_NEW, f"{tag} a request returned {len(o)} tokens")
+        teacher_forced(torch, prefill_forward, params, cfg, dev, p, o,
+                       f"{tag} {label} tokens, {len(p)}-token prompt",
+                       within_top=2)
+    print(f"{tag} {label} (gloo, eager, one card): B=8 decode step "
+          f"{res['decode_step_ms']:.3f} ms; cold 1500-token prefill "
+          f"{res['cold_prefill_ms']:.3f} ms; adopted 1500-token prefill "
+          f"(93 chunks from the native store) {res['adopt_ms']:.3f} ms "
+          f"({card})")
+    # the store hop both ways, whole pages bitwise
+    check(res["p1_store_chunks"] == n1 and res["p1_pages_equal"],
+          f"{tag} adopted {res['p1_store_chunks']} chunks of p1 (want {n1}), "
+          f"pages bitwise equal to A's: {res['p1_pages_equal']}")
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p1,
+                   res["p1_tokens"], f"{tag} {label} tokens after adopting "
+                   f"A's pages", within_top=2)
+    c = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=512),
+                        conn=conn, kv_quant=None, model_id="tp-smoke",
+                        prefill_chunk=512)
+    sc = c.prefill(p_push)
+    n2 = (len(p_push) - 1) // pc.block_tokens
+    check(sc.store_chunks == n2,
+          f"{tag} C adopted {sc.store_chunks} of the {label} push's {n2} "
+          f"chunks")
+    c_same = _pages_digest(c.cache[:, :, :, torch.tensor(
+        sc.block_ids[:n2], device=dev)]) == res["p2_digest"]
+    print(f"{tag} store hop: the {label} group adopted A's {n1} chunks, "
+          f"pages bitwise equal {res['p1_pages_equal']}; tp=1 C adopted the "
+          f"group's {n2} chunks, pages bitwise equal {c_same}")
+    check(c_same, f"{tag} C's adopted pages differ from the pages the "
+          f"{label} group pushed")
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p_push,
+                   res["p2_tokens"], f"{tag} {label} tokens of its pushed "
+                   f"prompt", within_top=2)
+    teacher_forced(torch, prefill_forward, params, cfg, dev, p_push,
+                   c.decode(sc, 16), f"{tag} tp=1 C's tokens after adopting "
+                   f"the {label} group's pages", within_top=2)
+    del c, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_spec_tp(torch, r, params, cfg, dev, p, card: str) -> dict:
+    """The tp=2 speculation leg (``_group_leader_spec``): the n-gram and
+    self-draft tokens against the group's plain decode by the rank rule
+    (teacher-forced on the tp=1 weights); the sharded target's launches
+    on each rank (the leader's counted apart from its draft's), K1, K2 and
+    K3 on every rank and the same counts on each; returns the leg's
+    launches summed over the ranks, the draft's included."""
+    from infinistore_tpu_torch.models import prefill_forward
+
+    for name in ("ngram", "draft"):
+        got, want = r[name], r["plain"]
+        same = sum(x == y for x, y in zip(got, want))
+        print(f"[tp] spec under tp=2, {name} (k=4, B=1, {SPEC_TP_NEW} "
+              f"tokens): {same}/{SPEC_TP_NEW} tokens equal to plain tp=2 "
+              f"decode; acceptance {r[name + '_acceptance']:.3f} over "
+              f"{r[name + '_rounds']} rounds; "
+              f"{r[name + '_ms_per_token']:.3f} ms/token against plain "
+              f"{r['plain_ms_per_token']:.3f} ({card}, gloo, eager)")
+        check(len(got) == SPEC_TP_NEW, f"[tp] spec {name} returned "
+              f"{len(got)} tokens")
+        if got != want:
+            teacher_forced(torch, prefill_forward, params, cfg, dev, p, got,
+                           f"[tp] spec under tp=2, {name} tokens",
+                           within_top=2)
+    check(r["draft_acceptance"] > 0.5, "[tp] the self-draft under tp=2 "
+          f"accepted {r['draft_acceptance']:.3f} of its proposals")
+    target = r["target_launches"]
+    print(f"[tp] spec under tp=2: per rank launches {r['rank_launches']}; "
+          f"the leader's unsharded draft's {r['draft_launches']}; so the "
+          f"sharded target's per rank {target}")
+    _check_ranks_launched(target, "[tp] spec under tp=2, the target")
+    check(all(t == target[0] for t in target), "[tp] spec under tp=2: the "
+          "ranks' targets launched different counts, though each runs the "
+          "same ops on its shard")
+    return _summed(r["rank_launches"])
+
+
+def _check_lora_tp(torch, ca, r, params, cfg, pc, dev, lora_reqs) -> dict:
+    """The tp=2 lora leg against a tp=1 engine with the same bank (the
+    lora phase's, drawn here whole on the same seed): each adapter's
+    first-token logits on one prompt (adapter 0 by ``logits_agree``, the
+    others within one bf16 step of its max error E, each adapter's own
+    delta from adapter 0 more than 4x that tolerance); the same 8 requests
+    served, each tp=2 token at most 2E below the best of the tp=1
+    engine's own logits teacher-forced along the tp=2 tokens (its paged
+    ``verify`` with the bank, on the request's adapter: the bound a token
+    picked as the argmax of logits within E of tp=1's can reach); the
+    cold teacher-forced prefill's gaps printed beside them; K1, K2 and K3
+    on every rank.  Returns the leg's launches summed over the ranks."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import prefill_forward
+    from infinistore_tpu_torch.models.lora import init_lora_bank
+
+    print(f"[tp] lora under tp=2: 8 requests over adapters "
+          f"{sorted(set(LORA_ADAPTERS))} in {r['serve_s']:.2f} s; per rank "
+          f"launches {r['rank_launches']}; ranks agree {r['ranks_agree']}")
+    check(r["ranks_agree"], "[tp] lora under tp=2: the ranks sampled "
+          "different tokens")
+    _check_ranks_launched(r["rank_launches"], "[tp] lora under tp=2")
+    bank = init_lora_bank(cfg, ["a1", "a2", "a3", "a4"], 16,
+                          torch.Generator(device=dev).manual_seed(7), dev,
+                          init_scale=0.05)
+    ref = InferenceEngine(params, cfg, dataclasses.replace(pc, n_blocks=1024),
+                          prefill_chunk=512, lora=bank)
+    # adapter 0 (the base model through the bank engine) as the tp path's
+    # first-token check; each adapter then within one bf16 step (at its
+    # largest logit) of adapter 0's max error: the bank adds no error of
+    # its own under tp
+    base_err = None
+    tp1, tp2 = [], [lg.to(dev) for lg in r["first_logits_by_adapter"]]
+    for a, lg in enumerate(tp2):
+        st = ref.prefill(r["logits_prompt"], adapter_id=a)
+        tp1.append(st.last_logits.float())
+        ref.release(st)
+        what = (f"[tp] lora first-token logits, adapter {a}, tp=2 vs tp=1 "
+                f"with the same bank")
+        err = logits_agree(torch, lg, tp1[a], what, max_err=a == 0)
+        if a == 0:
+            base_err = err
+            continue
+        tol = base_err + tp1[a].abs().max().item() * 2 ** -8
+        check(err <= tol, f"{what}: max error {err:.4f} past the base "
+              f"model's {base_err:.4f} + one bf16 step = {tol:.4f}")
+        # the bank's own effect, well past that tolerance: a bank sliced
+        # wrong, or applied on one rank only, moves the logits by a share
+        # of it (about half, for a delta dropped on one of two ranks)
+        delta = (tp1[a] - tp1[0]).abs().max().item()
+        delta2 = (lg - tp2[0]).abs().max().item()
+        print(f"[tp] lora adapter {a}: its first-token logits differ from "
+              f"adapter 0's by up to {delta:.4f} at tp=1, {delta2:.4f} at "
+              f"tp=2; held to {tol:.4f} against tp=1 (must be below a "
+              f"quarter of the delta, {delta / 4:.4f})")
+        check(delta > 4 * tol, f"[tp] lora adapter {a}: its delta "
+              f"{delta:.4f} is not 4x the tolerance {tol:.4f} it is held "
+              f"to, so a fault in its slicing could pass")
+    _, want = _serve_path(torch, ca, ref, lora_reqs, TP_NEW,
+                          "[tp] lora, the tp=1 engine with the same bank:")
+    same = sum(x == y for o, w in zip(r["outputs"], want)
+               for x, y in zip(o, w))
+    print(f"[tp] lora: {same}/{len(want) * TP_NEW} tp=2 tokens equal to the "
+          f"tp=1 engine's with the same bank")
+    # tp=2 picks the argmax of its logits, which are tp=1's within the
+    # max error E measured above (adapter 0), so in tp=1's logits of the
+    # same context its token is at most 2E below the best
+    bound = 2 * base_err
+    for (p, a), got, w in zip(lora_reqs, r["outputs"], want):
+        st = ref.prefill(p, adapter_id=a)
+        rows = torch.cat([st.last_logits[None],
+                          ref.verify(st, got[:-1], len(p))]).float()
+        ref.release(st)
+        mine = rows.gather(1, torch.tensor(got, device=dev)[:, None])[:, 0]
+        gap = (rows.max(dim=-1).values - mine).max().item()
+        what = f"[tp] lora tp=2 vs tp=1, adapter {a}, {len(p)}-token prompt"
+        # beside it, the cold teacher-forced prefill with the bank
+        with torch.no_grad():
+            lg, _ = prefill_forward(
+                params, cfg, torch.tensor([p + got], device=dev),
+                lora=bank.tree, adapter_ids=torch.tensor(
+                    [a], dtype=torch.int32, device=dev),
+                lora_scale=bank.scale)
+        cold = lg[0, len(p) - 1:len(p) - 1 + len(got)].float()
+        cmine = cold.gather(1, torch.tensor(got, device=dev)[:, None])[:, 0]
+        ctop = cold.max(dim=-1).values
+        print(f"{what}: {sum(x == y for x, y in zip(got, w))}/{len(got)} "
+              f"tokens the tp=1 engine's; every token at most {gap:.4f} "
+              f"below the best of the tp=1 engine's logits teacher-forced "
+              f"along it (2E = {bound:.4f}); against a cold teacher-forced "
+              f"prefill with the bank (not held): largest relative gap "
+              f"{((ctop - cmine) / ctop.abs()).max().item():.4f}")
+        check(gap <= bound, f"{what}: a token {gap:.4f} below the tp=1 "
+              f"engine's best, past 2E = {bound:.4f}")
+    del ref
+    return _summed(r["rank_launches"])
+
+
+SP_NEW = 32  # greedy tokens decoded from the sp prefill's adopted KV
+# the sp prefill's max error against tp=1, in bf16 steps at the largest
+# value: the ring's sums run in another order (Llama-3-8B, 1500 tokens,
+# H100: 5.25 for the logits and 4.79 for the KV)
+SP_STEPS = 6
+
+
+def _sp_task(rank: int, world: int, p) -> dict:
+    """One rank of the sp=2 group: Llama-3-8B whole on every rank (the
+    seeded weights), ``make_sp_prefill`` over ``p`` timed; rank 0 then
+    holds its logits and KV against a tp=1 ``prefill_forward`` on the same
+    weights and adopts the KV into a tp=1 engine (``adopt_prefill``),
+    decoding ``SP_NEW`` greedy tokens beside that engine's own prefill and
+    decode of ``p``.  Returns rank 0's numbers."""
+    import torch
+
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import (LLAMA3_8B, init_params,
+                                              prefill_forward)
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+    from infinistore_tpu_torch.parallel import make_mesh, make_sp_prefill
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    cfg = LLAMA3_8B
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    mesh = make_mesh(sp=world)
+    fn = make_sp_prefill(cfg, mesh)
+    toks = torch.tensor([p], device=dev)
+    fn(params, toks[:, :64])  # warm-up
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kv = fn(params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"sp_ms": times}
+    if rank != 0:
+        return out
+    ref_logits, ref_kv = prefill_forward(params, cfg, toks)
+    for name, got, want in (("logits", logits, ref_logits),
+                            ("kv", kv, ref_kv)):
+        g, w = got.float().flatten(), want.float().flatten()
+        out[name + "_cos"] = float(torch.nn.functional.cosine_similarity(
+            g, w, dim=0))
+        out[name + "_max_err"] = float((g - w).abs().max())
+        out[name + "_max_abs"] = float(w.abs().max())
+    del ref_logits, ref_kv
+    pc = PagedCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.head_dim, n_blocks=512,
+                          block_tokens=16, dtype=cfg.dtype)
+    eng = InferenceEngine(params, cfg, pc, prefill_chunk=512)
+    T = pc.block_tokens
+    pad = (-len(p)) % T
+    kv_pad = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, pad))
+    ca.reset_launches()
+    st = eng.adopt_prefill(p, kv_pad, logits[0, -1])
+    out["adopted"] = eng.decode(st, SP_NEW)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ca.LAUNCHES)
+    eng.release(st)
+    out["free_pages_back"] = eng.free_pages == pc.n_blocks
+    out["plain"] = eng.decode(eng.prefill(p), SP_NEW)
+    return out
+
+
+def _sp_leg(torch, params, cfg, pc, dev, card: str, p) -> dict:
+    """Sequence-parallel prefill at sp=2 over gloo on one card (two ranks,
+    each holding the whole model): logits and KV against tp=1 (cosine, max
+    error within ``SP_STEPS`` of bf16's step), the adopted KV's tokens by
+    the rank rule
+    against the tp=1 engine's own; returns the path's launches (the
+    adopted decode's: ring attention is plain PyTorch, as the
+    reference's is jnp)."""
+    from infinistore_tpu_torch.models import prefill_forward
+
+    t0 = time.perf_counter()
+    r = _tp_world(_sp_task, 2, "gloo", p=p)
+    world_s = time.perf_counter() - t0
+    r0 = r[0]
+    print(f"[sp] sp=2 (gloo, one card) Llama-3-8B, one {len(p)}-token "
+          f"prompt: make_sp_prefill {r0['sp_ms']} ms on rank 0, "
+          f"{r[1]['sp_ms']} ms on rank 1 ({card}); the world ran in "
+          f"{world_s:.1f} s")
+    for name in ("logits", "kv"):
+        step = r0[name + "_max_abs"] * 2 ** -8  # bf16's step at the max
+        err = r0[name + "_max_err"]
+        print(f"[sp] {name} against tp=1 prefill_forward: cosine "
+              f"{r0[name + '_cos']:.6f}, max error {err:.5f} = "
+              f"{err / step:.2f} of bf16's step at the largest value "
+              f"({step:.5f}; held to {SP_STEPS})")
+        check(r0[name + "_cos"] > 0.999 and err <= SP_STEPS * step,
+              f"[sp] {name} against tp=1: cosine {r0[name + '_cos']:.6f}, "
+              f"max error {err / step:.2f} bf16 steps")
+    print(f"[sp] adopted KV -> tp=1 engine: launches {r0['launches']}; "
+          f"pages back after release {r0['free_pages_back']}")
+    check(r0["launches"]["paged_decode"] > 0 and r0["free_pages_back"],
+          "[sp] the adopted decode launched no K1, or kept pages")
+    rank_rule(torch, prefill_forward, params, cfg, dev, p, r0["adopted"],
+              r0["plain"], "[sp] tokens decoded from the sp=2 prefill's KV "
+              "vs the tp=1 engine's own", f32=False)
+    return r0["launches"]
 
 
 def _tp_nccl_legs(torch, params, cfg, dev, prompts) -> None:
@@ -3671,10 +4169,24 @@ def _tp_nccl_legs(torch, params, cfg, dev, prompts) -> None:
         if world == 1:
             check(same, "world-size-1 NCCL graphs gave other tokens than the "
                   "plain engine")
+            spec_same = r["spec_tp"] == r["spec_plain"]
+            print(f"[tp] tp=1 over nccl: n-gram and self-draft speculation "
+                  f"with the rounds' broadcasts and the verify's "
+                  f"collectives in the round graphs (spec captures "
+                  f"{r['captures']['spec']}, replays {r['replays']['spec']}):"
+                  f" tokens equal to the plain engine's speculation: "
+                  f"{spec_same}")
+            check(r["captures"]["spec"] > 0 and r["replays"]["spec"] > 0,
+                  "world-size-1 NCCL speculation captured no round graph")
+            check(spec_same, "world-size-1 NCCL round graphs gave other "
+                  "tokens than the plain engine's speculation")
         else:
             for p, o in zip(prompts, r["tp"]):
                 teacher_forced(torch, prefill_forward, params, cfg, dev, p, o,
                                "[tp] tp=2 nccl tokens", within_top=2)
+    print("[tp] pp=2 over nccl (the stage hand-offs and the logits' "
+          "broadcast captured in the graphs): not run, one card holds one "
+          "NCCL rank")
 
 
 def main() -> int:
@@ -3769,19 +4281,28 @@ def main() -> int:
         "lora_launches": lora_launches.get(key, 0),
         "cluster_launches": cluster_launches.get(key, 0),
         "moe_launches": moe_launches.get(key, 0),
-        "tp_launches": tp["launches"].get(key, 0),
+        # the multi-device paths, each summed over its ranks
+        **{f"{path}_launches": counts.get(key, 0)
+           for path, counts in tp["launches"].items()},
     } for key, r in rec.items()]
     # the tensor-parallel compositions: each rank's K1 (K3, K2) on its head
-    # shard; launches summed over the tp serving path's two ranks
-    tpl = tp["launches"]
+    # shard; launches summed over the ranks of each tp path (the serving,
+    # speculation and lora paths of the tp=2 group; on the speculation
+    # path the target's alone, without its leader's unsharded draft,
+    # each rank's counted on that rank)
     for key, r in tp["compositions"].items():
-        n = (tpl["paged_decode"] if key == "paged_decode_tp"
-             else tpl["flash_causal"] + tpl["flash_prefix"])
+        per = {path: (c["paged_decode"] if key == "paged_decode_tp"
+                      else c["flash_causal"] + c["flash_prefix"])
+               for path, c in {**tp["launches"],
+                               **tp["target_launches"]}.items()
+               if path in ("tp", "spec_tp", "lora_tp")}
         kernels.append({
             k: r[k] for k in ("name", "route", "source", "replaces",
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")})
-        kernels[-1].update(launches=n, tp_launches=n, rank_ms=r["rank_ms"])
+        kernels[-1].update(launches=per["tp"], rank_ms=r["rank_ms"],
+                           **{f"{path}_launches": n
+                              for path, n in per.items()})
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -69,22 +69,29 @@ store hop routes per chunk over the consistent-hash ring
 (``cluster.ClusterTransferEngine``), with per-node breakers and hot-prefix
 replication.
 
-Tensor-parallel serving (``mesh=``, a ``parallel.make_mesh`` mesh with a
-``tp`` axis) maps the reference's single controller onto one process per
-rank.  The tp group's rank 0 leads: it holds the page bookkeeping, the
-prefix cache, the store connection and (in ``serve``) the ``Scheduler``.
-Every rank holds its Megatron shard of the weights and its head shard of
-the paged cache ``[L, 2, H_kv/tp, n_blocks, T, D]``.  Each device step is a
-named op (the ``_op_*`` methods): the leader broadcasts its name and host
+Multi-device serving (``mesh=``, a ``parallel.make_mesh`` mesh with a
+``tp`` axis, a ``pp`` axis or both) maps the reference's single controller
+onto one process per rank.  The serving group (the mesh's ``pp x tp``
+ranks) has one leader, its rank 0: it holds the page bookkeeping, the
+prefix cache, the store connection, a speculator's draft and (in
+``serve``) the ``Scheduler``.  Every rank holds its stage's ``n_layers/pp``
+layers, each its Megatron shard, and the matching slice of the paged cache
+``[L/pp, 2, H_kv/tp, n_blocks, T, D]``.  Each device step is a named op
+(the ``_op_*`` methods): the leader broadcasts its name and host
 arguments, then every rank runs it, the model's collectives inside
-(``models/llama.py`` with ``tp=``); the other ranks run ``follow()``, which
-waits for the leader's ops and runs them, and nothing else.  The logits
-are all-gathered, so every rank samples the same token from the same bits.
-The store holds whole pages: a push gathers every rank's head slice on the
-leader and packs it as a tp=1 engine does; a load scatters each rank its
-slice.  Over NCCL the graphs capture the collectives (every rank captures
-a key at the same op); over gloo, whose collectives run on the host, the
-graph bodies run eagerly.
+(``models/llama.py`` with ``tp=`` and ``pp=``: two all-reduces per layer
+within a stage, the hidden state handed from stage to stage, the logits
+gathered and broadcast to every rank); the other ranks run ``follow()``,
+which waits for the leader's ops and runs them, and nothing else.  Every
+rank samples the same token from the same bits.  The store holds whole
+pages: a push gathers every rank's slice on the leader and packs it as a
+tp=1 engine does; a load scatters each rank its slice.  Speculation keeps
+its draft (or n-gram matcher) on the leader: ``verify`` is an op, and a
+speculative round broadcasts its ``[prev, p_1..p_k]`` and accepted count
+so the followers verify on their shards in step (``spec_rounds``).  A LoRA
+bank is sliced as the weights are.  Over NCCL the graphs capture the
+collectives (every rank captures a key at the same op); over gloo, whose
+collectives run on the host, the graph bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -127,8 +134,9 @@ from ..models.llama import (
     verify_forward,
 )
 from ..ops import cuda_attention as ca
-from ..parallel.distributed import TPGroup
-from ..parallel.sharding import check_tp_heads, shard_params
+from ..parallel.distributed import PPGroup, TPGroup
+from ..parallel.sharding import (check_tp_heads, params_are_whole,
+                                 pp_rank_size, shard_params, tp_rank_size)
 from .. import usage as _usage
 from ..utils import metrics as _metrics
 from ..utils import tracing
@@ -461,19 +469,11 @@ class PartialPrefill:
     pid: int = 0  # names its prefix buffer on tensor-parallel followers
 
 
-def _tp_unsupported(what: str) -> NotImplementedError:
-    """The error of a path tensor parallelism does not take yet
-    (speculation, LoRA), naming the ROADMAP.md item it waits for."""
-    return NotImplementedError(
-        f"{what} under tensor parallelism is not ported yet (ROADMAP.md "
-        f"queue 1 item 5b)")
-
-
 class _TPPages:
-    """The store hop's device halves on a tensor-parallel leader
-    (``KVTransferEngine.tp_pages``): a push gathers every rank's head slice
-    of the pages, a load scatters each rank its slice, each as an op of
-    the leader's engine."""
+    """The store hop's device halves on the leader of a serving group
+    (``KVTransferEngine.tp_pages``): a push gathers every rank's slice of
+    the pages (its stage's layers, its heads), a load scatters each rank
+    its slice, each as an op of the leader's engine."""
 
     def __init__(self, engine: "InferenceEngine"):
         self._engine = engine
@@ -553,44 +553,63 @@ class InferenceEngine:
         pick an adapter, and one batch mixes them.  Built-in Llama family
         only (with a custom family it raises, as in the reference).
 
-        ``mesh``: a ``parallel.make_mesh`` mesh with a ``tp`` axis makes
-        this rank's engine one of a tensor-parallel group (module
-        docstring): ``params`` are the whole model, sharded here
-        (``param_specs``, default ``parallel.llama_inference_specs``), or
-        this rank's shard already; the cache holds this rank's KV heads.
-        Every rank builds its engine with the same arguments; the group's
-        rank 0 passes ``conn`` and is driven, the others call ``follow()``.
-        Built-in Llama family only; LoRA and speculation raise.
+        ``mesh``: a ``parallel.make_mesh`` mesh with a ``tp`` axis, a
+        ``pp`` axis or both makes this rank's engine one of a serving group
+        (module docstring): ``params`` (and a ``lora`` bank) are the whole
+        model, sharded here (``param_specs``, default
+        ``parallel.llama_inference_specs``; with ``pp`` the rank's stage
+        of the layers), or this rank's shard already; the cache holds this
+        rank's layers and KV heads.  Every rank builds its engine with the
+        same arguments; the group's rank 0 passes ``conn`` and is driven,
+        the others call ``follow()``.  Built-in Llama family only.
         ``pallas_tp`` is kept for the reference's signature: its kernels
         need a ``shard_map`` to run on shards, the CUDA kernels run on each
         rank's head shard either way."""
-        self._tp = None
+        self._grp = self._tp = self._pp = None
+        self._mesh_shape = (1, 1)  # (pp, tp)
         if mesh is not None:
             if prefill_fn or decode_fn or verify_fn:
                 raise ValueError("mesh serving supports the built-in dense "
                                  "families (the MoE family scales by expert "
                                  "parallelism, not ported yet)")
-            if lora is not None:
-                raise _tp_unsupported("lora")
-            tp = TPGroup.from_mesh(mesh)
-            check_tp_heads(cfg.n_heads, cfg.n_kv_heads, tp.size)
-            if params["lm_head"].shape[-1] == cfg.vocab_size and tp.size > 1:
-                params = shard_params(params, mesh, param_specs)
-            elif params["lm_head"].shape[-1] * tp.size != cfg.vocab_size:
+            tp_rank, tp_n = tp_rank_size(mesh)
+            pp_rank, pp_n = pp_rank_size(mesh)
+            check_tp_heads(cfg.n_heads, cfg.n_kv_heads, tp_n)
+            if cfg.n_layers % pp_n:
+                raise ValueError(f"n_layers={cfg.n_layers} must divide over "
+                                 f"pp={pp_n}")
+            wq = params["layers"]["wq"]
+            if params_are_whole(params, cfg):
+                if tp_n * pp_n > 1:
+                    params = shard_params(params, mesh, param_specs)
+            elif (wq.shape[0] * pp_n != cfg.n_layers
+                  or wq.shape[-1] * tp_n != cfg.n_heads * cfg.head_dim):
                 raise ValueError(
-                    f"params' lm_head holds {params['lm_head'].shape[-1]} "
-                    f"of {cfg.vocab_size} columns: neither the whole model "
-                    f"nor a tp={tp.size} shard")
-            if not tp.is_leader and conn is not None:
-                raise ValueError("only the tp group's leader holds a store "
-                                 "connection")
-            self._tp = tp
+                    f"params' wq is {tuple(wq.shape)}: neither the whole "
+                    f"model nor a pp={pp_n} x tp={tp_n} shard")
+            if lora is not None and lora.is_whole(cfg) and tp_n * pp_n > 1:
+                lora = lora.shard(tp_rank, tp_n, pp_rank, pp_n)
+            grp = TPGroup.serving(mesh)
+            if not grp.is_leader and conn is not None:
+                raise ValueError("only the serving group's leader holds a "
+                                 "store connection")
+            self._grp = grp
+            self._mesh_shape = (pp_n, tp_n)
+            # the model's tp collectives; a pure-tp mesh keeps them at tp 1
+            # too (a one-rank NCCL group captures them in its graphs),
+            # under pp a single-rank tp axis needs none
+            if tp_n > 1 or pp_n == 1:
+                self._tp = TPGroup.from_mesh(mesh)
+            if pp_n > 1:
+                self._pp = PPGroup.from_mesh(mesh, cfg.n_layers)
         # a group whose collectives run on the host cannot be captured
-        self._capture_ok = self._tp is None or not self._tp.host_staged
+        self._capture_ok = self._grp is None or not self._grp.host_staged
         self._op_lock = threading.Lock()
         self._next_pid = 0
         # followers: each partial prefill's prefix buffer, by pid
         self._tp_bufs: Dict[int, torch.Tensor] = {}
+        # followers: the speculative round graphs' target halves, by key
+        self._spec_graphs: Dict[tuple, object] = {}
         # the tokens of the last decode chunks this rank sampled (the ranks
         # agree on every one)
         self.rank_tokens: "deque" = deque(maxlen=64)
@@ -610,11 +629,11 @@ class InferenceEngine:
         self.model_id = model_id
         self.params = params
         self.lora = lora
-        # this rank's KV heads (all of them without a mesh)
-        self._hkv = pc.n_kv_heads // (1 if self._tp is None
-                                      else self._tp.size)
-        self.cache = init_cache(dataclasses.replace(pc, n_kv_heads=self._hkv),
-                                self.device)
+        # this rank's layers and KV heads (all of them without a mesh)
+        self._nl = pc.n_layers // self._mesh_shape[0]
+        self._hkv = pc.n_kv_heads // self._mesh_shape[1]
+        self.cache = init_cache(dataclasses.replace(
+            pc, n_layers=self._nl, n_kv_heads=self._hkv), self.device)
         self.alloc = BlockAllocator(pc.n_blocks)
         # automatic prefix caching: complete-chunk pages are content-
         # addressed by their prefix-commitment key and shared across
@@ -626,8 +645,8 @@ class InferenceEngine:
         # and hot-prefix replication
         self.transfer = None if conn is None else transfer_for(
             conn, pc, quant=kv_quant, device=self.device)
-        if self.transfer is not None and self._tp is not None:
-            # the store holds whole pages (``pc``'s every head)
+        if self.transfer is not None and self._grp is not None:
+            # the store holds whole pages (``pc``'s every layer and head)
             self.transfer.tp_pages = _TPPages(self)
         if store_durability not in ("strict", "relaxed"):
             raise ValueError(
@@ -693,9 +712,10 @@ class InferenceEngine:
         self._vocab_hash = (torch.arange(cfg.vocab_size, dtype=torch.long,
                                          device=self.device)
                             * 0x9E3779B9) & _M32
-        # the model family's forwards, called with keywords (with the tp
-        # group under a mesh: the built-in family's collectives)
-        tpkw = {} if self._tp is None else {"tp": self._tp}
+        # the model family's forwards, called with keywords (under a mesh
+        # with the tp and pp groups: the built-in family's collectives)
+        tpkw = {k: g for k, g in (("tp", self._tp), ("pp", self._pp))
+                if g is not None}
         self._prefill = functools.partial(prefill_fn or prefill_forward,
                                           cfg=cfg, **tpkw)
         self._decode = functools.partial(decode_fn or decode_forward, cfg=cfg,
@@ -709,11 +729,11 @@ class InferenceEngine:
         self._verify = self._verify_last = None
         vfn = verify_fn or (verify_forward if self._has_verify else None)
         if vfn is not None:
-            self._verify = functools.partial(vfn, cfg=cfg)
+            self._verify = functools.partial(vfn, cfg=cfg, **tpkw)
             if vfn is verify_forward or \
                     "last_only" in inspect.signature(vfn).parameters:
                 self._verify_last = functools.partial(vfn, cfg=cfg,
-                                                      last_only=True)
+                                                      last_only=True, **tpkw)
             else:
                 self._verify_last = self._verify
 
@@ -752,42 +772,50 @@ class InferenceEngine:
     def _tokens(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.int32, device=self.device)
 
-    # ---- tensor parallelism: the leader's ops and the followers' loop ----
+    # ---- serving groups: the leader's ops and the followers' loop ----
 
     @property
-    def tp_size(self) -> int:
-        return 1 if self._tp is None else self._tp.size
+    def group_size(self) -> int:
+        """The ranks of this engine's serving group (1 without a mesh)."""
+        return 1 if self._grp is None else self._grp.size
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank drives the engine (no mesh, or the serving
+        group's rank 0); the others ``follow()``."""
+        return self._grp is None or self._grp.is_leader
 
     def _op(self, name: str, *args, **leader_kw):
         """Run the device op ``_op_<name>(*args)`` on this engine and, on a
-        tensor-parallel leader, on every follower first told its name and
+        serving group's leader, on every follower first told its name and
         ``args`` (host values; a ``PartialPrefill`` travels without its
         prefix buffer, which each rank keeps).  ``leader_kw`` reach the
-        leader's call only (tensors the op sends the others itself).  Ops
-        are serialized: their collectives pair up in order on every
-        rank."""
+        leader's call only (tensors the op sends the others itself, the
+        leader's own round bodies).  Ops are serialized: their collectives
+        pair up in order on every rank."""
         fn = getattr(self, "_op_" + name)
-        if self._tp is None:
+        if self._grp is None:
             return fn(*args, **leader_kw)
-        if not self._tp.is_leader:
-            raise RuntimeError("a tensor-parallel follower runs only the "
+        if not self._grp.is_leader:
+            raise RuntimeError("a serving group's follower runs only the "
                                "ops its leader sends (follow())")
         with self._op_lock:
-            self._tp.send_op((name, tuple(
+            self._grp.send_op((name, tuple(
                 dataclasses.replace(a, buf=None)
                 if isinstance(a, PartialPrefill) else a for a in args)))
             return fn(*args, **leader_kw)
 
     def follow(self) -> None:
-        """A tensor-parallel follower's loop: run each op the leader sends,
+        """A serving group's follower loop: run each op the leader sends,
         on the engine's stream, until the leader shuts the group down
         (``shutdown_followers``).  A leader that dies makes the wait
         raise."""
-        if self._tp is None or self._tp.is_leader:
-            raise RuntimeError("follow() runs on a tensor-parallel "
-                               "follower (a mesh rank other than tp 0)")
+        if self.is_leader:
+            raise RuntimeError("follow() runs on a serving group's "
+                               "follower (a mesh rank other than its "
+                               "group's rank 0)")
         while True:
-            name, args = self._tp.recv_op()
+            name, args = self._grp.recv_op()
             if name == "shutdown":
                 return
             pp = args[0] if args and isinstance(args[0], PartialPrefill) \
@@ -801,16 +829,17 @@ class InferenceEngine:
                 self._tp_bufs[pp.pid] = pp.buf
 
     def shutdown_followers(self) -> None:
-        """On a tensor-parallel leader: end every follower's ``follow()``.
+        """On a serving group's leader: end every follower's ``follow()``.
         A no-op elsewhere."""
-        if self._tp is not None and self._tp.is_leader:
+        if self._grp is not None and self._grp.is_leader:
             with self._op_lock:
-                self._tp.send_op(("shutdown", ()))
+                self._grp.send_op(("shutdown", ()))
 
     def tp_report(self) -> Optional[List[dict]]:
-        """Every rank's ``rank_report()`` in rank order (None without a
-        mesh): its held bytes, kernel launches and last sampled tokens."""
-        if self._tp is None:
+        """Every rank's ``rank_report()`` in the serving group's rank order
+        (None without a mesh): its held bytes, kernel launches and last
+        sampled tokens."""
+        if self._grp is None:
             return None
         return self._op("report")
 
@@ -818,19 +847,43 @@ class InferenceEngine:
         """This rank's numbers, as ``tp_report`` gathers them."""
         from ..ops import build
 
+        rank = self._grp.rank if self._grp else 0
+        wq = self.params["layers"]["wq"]
         return {
-            "rank": self._tp.rank if self._tp else 0,
+            "rank": rank,
+            "stage": rank // self._mesh_shape[1],
+            "layers": self._nl,
             "pid": os.getpid(),
-            "backend": self._tp.backend if self._tp else None,
+            "backend": self._grp.backend if self._grp else None,
             "cuda_graphs": self._capture_ok and self.device.type == "cuda",
             "held_bytes": self.held_bytes(),
+            # the shard's share of the whole: the paged cache and wq
+            "cache_bytes": self.cache.numel() * self.cache.element_size(),
+            "wq_bytes": wq.numel() * wq.element_size(),
             "kernel_launches": dict(ca.LAUNCHES),
             "nvcc_runs": build.NVCC_RUNS,
             "tokens": [list(t) for t in self.rank_tokens],
         }
 
     def _op_report(self):
-        return self._tp.gather_objects(self.rank_report())
+        return self._grp.gather_objects(self.rank_report())
+
+    def _assemble(self, parts: List[torch.Tensor], layer_dim: int,
+                  head_dim: int) -> torch.Tensor:
+        """The whole tensor from the serving group's slices in rank order
+        (stage-major): each stage's heads side by side, the stages'
+        layers one after another."""
+        pp_n, tp_n = self._mesh_shape
+        return torch.cat([torch.cat(parts[s * tp_n:(s + 1) * tp_n],
+                                    dim=head_dim) for s in range(pp_n)],
+                         dim=layer_dim)
+
+    def _split(self, whole: torch.Tensor, layer_dim: int,
+               head_dim: int) -> List[torch.Tensor]:
+        """``_assemble``'s inverse: every rank's slice, in rank order."""
+        _, tp_n = self._mesh_shape
+        return [h for st in whole.chunk(self._mesh_shape[0], dim=layer_dim)
+                for h in st.chunk(tp_n, dim=head_dim)]
 
     def _op_prefill_begin(self, pp: "PartialPrefill") -> None:
         """A prefill's prefix buffer from the pages already in the cache:
@@ -847,36 +900,36 @@ class InferenceEngine:
         self._tp_bufs.pop(pid, None)
 
     def _op_gather_pages(self, block_ids: List[int]) -> Optional[torch.Tensor]:
-        """Every rank's head slice of ``block_ids``'s pages; on the leader
-        the whole pages [L, 2, H_kv, n, T, D]."""
+        """Every rank's slice of ``block_ids``'s pages; on the leader the
+        whole pages [L, 2, H_kv, n, T, D]."""
         ids = torch.tensor(block_ids, dtype=torch.long, device=self.device)
-        return self._tp.gather(read_pages(self.cache, ids), dim=2)
+        parts = self._grp.gather_parts(read_pages(self.cache, ids))
+        return None if parts is None else self._assemble(parts, 0, 2)
 
     def _op_scatter_pages(self, block_ids: List[int],
                           pages: Optional[torch.Tensor] = None) -> None:
-        """Each rank's head slice of the leader's whole ``pages`` [L, 2,
-        H_kv, n, T, D] into its cache at ``block_ids``, in place."""
+        """Each rank's slice of the leader's whole ``pages`` [L, 2, H_kv,
+        n, T, D] into its cache at ``block_ids``, in place."""
         L, two, H, _, T, D = self.cache.shape
         local = torch.empty((L, two, H, len(block_ids), T, D),
                             dtype=self.cache.dtype, device=self.device)
-        self._tp.scatter_(local, None if pages is None else list(
-            pages.to(self.cache.dtype).chunk(self._tp.size, dim=2)))
+        self._grp.scatter_(local, None if pages is None else self._split(
+            pages.to(self.cache.dtype), 0, 2))
         ids = torch.tensor(block_ids, dtype=torch.long, device=self.device)
         self.cache = write_pages(self.cache, ids, local)
 
     def _op_adopt_pages(self, block_ids: List[int],
                         kv: Optional[torch.Tensor] = None) -> None:
         """Adopted prompt KV [L, 2, 1, S, H_kv, D] into the cache at
-        ``block_ids``; under tp each rank gets its head slice of the
+        ``block_ids``; in a serving group each rank gets its slice of the
         leader's ``kv``."""
         T = self.pc.block_tokens
-        if self._tp is not None:
+        if self._grp is not None:
             L, two, H, _, _, D = self.cache.shape
             local = torch.empty((L, two, 1, len(block_ids) * T, H, D),
                                 dtype=self.cache.dtype, device=self.device)
-            self._tp.scatter_(local, None if kv is None else list(
-                kv.to(self.device, self.cache.dtype).chunk(
-                    self._tp.size, dim=4)))
+            self._grp.scatter_(local, None if kv is None else self._split(
+                kv.to(self.device, self.cache.dtype), 0, 4))
             kv = local
         self.cache = _write_prefill_pages(
             self.cache, block_ids, kv.to(self.device, self.cache.dtype), T)
@@ -1202,14 +1255,14 @@ class InferenceEngine:
                 aid=torch.zeros((1,), dtype=torch.int32, device=dev),
                 logits=torch.zeros((1, 1, cfg.vocab_size), dtype=dtype,
                                    device=dev),
-                kv=torch.zeros(cfg.n_layers * 2 * rows * self._hkv
+                kv=torch.zeros(self._nl * 2 * rows * self._hkv
                                * cfg.head_dim, dtype=dtype, device=dev))
         buf = None
         if route == "prefix":
             buf = self._pf_prefix.get(cap)
             if buf is None:
                 buf = self._pf_prefix[cap] = self._prefix_buffer(cap, dtype)
-        kv_shape = (cfg.n_layers, 2, 1, Cb, self._hkv, cfg.head_dim)
+        kv_shape = (self._nl, 2, 1, Cb, self._hkv, cfg.head_dim)
         g = self._prefill_graphs[key] = _PrefillGraph(
             key, torch.zeros((1, Cb), dtype=torch.int32, device=dev),
             sh["last"], sh["plen"] if buf is not None else None, buf,
@@ -1219,13 +1272,13 @@ class InferenceEngine:
 
     def _prefix_buffer(self, cap: int, dtype: torch.dtype) -> torch.Tensor:
         """A zeroed prefix buffer of ``cap`` rows [L, 2, 1, cap, H_kv, D]
-        (this rank's KV heads): a
+        (this rank's layers and KV heads): a
         view of the shared storage of ``TAIL_GRAPH_PREFIX`` rows (made at
         the first such capacity) when it fits, else a tensor of its own.
         The keys may share it: each chunk copies its own prefix in before
         its body runs, and the engine's prefill graphs run one at a time."""
         cfg = self.cfg
-        shape = (cfg.n_layers, 2, 1, cap, self._hkv, cfg.head_dim)
+        shape = (self._nl, 2, 1, cap, self._hkv, cfg.head_dim)
         if cap > TAIL_GRAPH_PREFIX:
             return torch.zeros(shape, dtype=dtype, device=self.device)
         flat = self._pf_shared.get("prefix")
@@ -1529,7 +1582,7 @@ class InferenceEngine:
         collectives run on the host (gloo)."""
         if not self._capture_ok:
             raise RuntimeError(
-                f"a {self._tp.backend} tensor-parallel group runs its "
+                f"a {self._grp.backend} serving group runs its "
                 f"collectives on the host: no CUDA graph can capture them "
                 f"(the graph bodies run eagerly)")
         if self._pool is None:
@@ -1725,8 +1778,6 @@ class InferenceEngine:
         B = len(states)
         if B < 1:
             raise ValueError("decode_batch needs at least one sequence")
-        if collect and self._tp is not None:
-            raise _tp_unsupported("speculation")
         samples = [sample] * B if isinstance(sample, str) else list(sample)
         if len(samples) != B or not all(
                 s in ("greedy", "categorical") for s in samples):
@@ -1827,7 +1878,7 @@ class InferenceEngine:
                 _stepprof.note_tokens(chunk * B)
                 _stepprof.note_sync("decode_tokens")
                 host_toks = g.toks[:chunk].cpu().numpy()  # one sync/chunk
-                if self._tp is not None:
+                if self._grp is not None:
                     self.rank_tokens.append(host_toks[:, :B].tolist())
                 if collect:
                     qs.append(g.q[:chunk, :B].clone())
@@ -1862,18 +1913,18 @@ class InferenceEngine:
         return out
 
     def _op_decode_begin(self, key: tuple) -> None:
-        """Under tp: the leader's inputs of ``key``'s decode graph (logits,
-        positions, table, sampling vectors, penalty state) into every
-        rank's buffers, so every rank steps from the same bits."""
-        if self._tp is None:
+        """In a serving group: the leader's inputs of ``key``'s decode graph
+        (logits, positions, table, sampling vectors, penalty state) into
+        every rank's buffers, so every rank steps from the same bits."""
+        if self._grp is None:
             return
         for t in self._decode_graph(key).inputs():
-            self._tp.broadcast_(t)
+            self._grp.broadcast_(t)
 
     def _op_decode_chunk(self, key: tuple, chunk: int, eager: bool) -> None:
         g = self._decode_graph(key)
         self._run_chunk(g, chunk, eager)
-        if self._tp is not None and not self._tp.is_leader:
+        if not self.is_leader:
             self.rank_tokens.append(
                 g.toks[:chunk].cpu().numpy()[:, :self._rows(g)].tolist())
 
@@ -1957,18 +2008,18 @@ class InferenceEngine:
             full(top_k, torch.int32), full(top_p, torch.float32)), dim=-1)
 
     def verify(self, state: SequenceState, run_tokens: Sequence[int],
-               start_pos: int) -> torch.Tensor:
+               start_pos: int, last_only: bool = False) -> torch.Tensor:
         """Process ``run_tokens`` at positions ``start_pos..`` in ONE paged
         forward (the speculative-decode verify step, eager): their K/V are
         written into the cache and the logits after each token come back
-        [S, V].
+        [S, V] ([1, V], the last token's, with ``last_only``).  In a
+        serving group it is an op every rank runs on its shard, the logits
+        gathered as decode's are.
 
         Does NOT update ``state.tokens``: the caller decides which tokens
         are accepted.  K/V written for later-rejected tokens is harmless:
         attention masks by absolute position, and a future token at the
         same position overwrites the same page slot."""
-        if self._tp is not None:
-            raise _tp_unsupported("speculation")
         if not self._has_verify:
             raise ValueError(
                 "this engine's model family has no verify step; pass "
@@ -1987,19 +2038,117 @@ class InferenceEngine:
                                  dtype=np.int32)
         _stepprof.note_dispatch("verify")
         with self._on_engine_stream():
-            logits, self.cache = self._verify(
-                self.params,
-                tokens=self._tokens([list(run_tokens)]),
-                positions=torch.from_numpy(poss[None]).to(self.device),
-                cache=self.cache,
-                block_table=torch.from_numpy(
-                    self._block_table([state])).to(self.device),
-                slot_block_ids=torch.from_numpy(
-                    slot_blocks[None]).to(self.device),
-                slot_ids=torch.from_numpy((poss % T)[None]).to(self.device),
-                **self._lora_args([state.adapter_id]),
-            )
+            logits = self._op("verify", [list(run_tokens)], poss[None],
+                              slot_blocks[None], self._block_table([state]),
+                              [state.adapter_id], last_only)
         return logits[0]
+
+    def _op_verify(self, tokens: List[List[int]], poss: np.ndarray,
+                   slot_blocks: np.ndarray, table: np.ndarray,
+                   adapter_ids: List[int], last_only: bool) -> torch.Tensor:
+        """The verify forward over host rows: logits [B, S or 1, V]."""
+        T = self.pc.block_tokens
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        fn = self._verify_last if last_only else self._verify
+        logits, self.cache = fn(
+            self.params, tokens=self._tokens(tokens), positions=dev(poss),
+            cache=self.cache, block_table=dev(table),
+            slot_block_ids=dev(slot_blocks), slot_ids=dev(poss % T),
+            **self._lora_args(adapter_ids))
+        return logits
+
+    # ---- speculation's rounds in a serving group ----
+
+    def spec_share_(self, t: torch.Tensor) -> None:
+        """In a serving group: the leader's ``t`` into every rank's, in
+        place (a round body's proposals and accepted counts); a no-op
+        without a mesh.  A collective: the followers' bodies
+        (``_follow_round``) make the same calls in the same order."""
+        if self._grp is not None:
+            self._grp.broadcast_(t)
+
+    def _follow_graph(self, key: tuple):
+        """A follower's round-graph buffers for ``key`` = ("follow", batch
+        bucket, target table width, k): each row's accepted length and
+        block table, loaded by ``spec_load``."""
+        from .speculative import _RoundGraph
+
+        g = self._spec_graphs.get(key)
+        if g is None:
+            _, Bp, Wt, _k = key
+            g = self._spec_graphs[key] = _RoundGraph(key, dict(
+                n=torch.zeros((Bp,), dtype=torch.int32, device=self.device),
+                t_table=torch.zeros((Bp, Wt), dtype=torch.int32,
+                                    device=self.device)))
+        return g
+
+    def _op_spec_load(self, key: tuple, n: Optional[torch.Tensor] = None,
+                      table: Optional[torch.Tensor] = None) -> None:
+        """A round dispatch's starting state: the leader's accepted lengths
+        ``n`` and target block table into every follower's ``key``
+        buffers."""
+        if self._grp is None:
+            return
+        if n is None:
+            g = self._follow_graph(key)
+            n, table = g.n, g.t_table
+        self._grp.broadcast_(table)
+        self._grp.broadcast_(n)
+
+    def _op_spec_rounds(self, key: tuple, R: int, body=None,
+                        refresh=None) -> None:
+        """``R`` speculative rounds, then the refresh: on the leader its
+        speculator's own bodies (``body()``, ``refresh()``); on a follower
+        the target's half of them over its ``key`` buffers: each round
+        takes the leader's ``[prev, p_1..p_k]``, verifies them on this
+        rank's shard and advances by the leader's accepted count, so the
+        ranks' caches end at the same length."""
+        if body is not None:
+            body(R)
+            refresh()
+            return
+        from .speculative import run_body
+
+        g = self._follow_graph(key)
+        run_body(self, g, g.round, lambda: self._follow_round(g),
+                 f"spec_follow{key}", R, (self,))
+        run_body(self, g, g.refresh, lambda: self._follow_refresh(g),
+                 f"spec_follow_refresh{key}", 1, (self,))
+
+    def _follow_round(self, g) -> None:
+        """A follower's half of one round (the collectives of the leader's
+        round body, in its order)."""
+        from .speculative import _slots
+
+        _, Bp, _, k = g.key
+        run = torch.zeros((Bp, k + 1), dtype=torch.int32, device=self.device)
+        self.spec_share_(run)
+        poss = g.n[:, None] - 1 + torch.arange(
+            k + 1, dtype=torch.int32, device=self.device)[None]
+        blks, slots = _slots(g.t_table, poss, self.pc.block_tokens)
+        self._verify(self.params, tokens=run, positions=poss,
+                     cache=self.cache, block_table=g.t_table,
+                     slot_block_ids=blks, slot_ids=slots)
+        cnt = torch.zeros((Bp,), dtype=torch.int32, device=self.device)
+        self.spec_share_(cnt)
+        g.n.add_(cnt)
+
+    def _follow_refresh(self, g) -> None:
+        """A follower's half of the refresh: the last accepted token's
+        last-row verify."""
+        from .speculative import _slots
+
+        last = torch.zeros((g.n.shape[0], 1), dtype=torch.int32,
+                           device=self.device)
+        self.spec_share_(last)
+        posF = g.n[:, None] - 1
+        blk, slot = _slots(g.t_table, posF, self.pc.block_tokens)
+        self._verify_last(self.params, tokens=last, positions=posF,
+                          cache=self.cache, block_table=g.t_table,
+                          slot_block_ids=blk, slot_ids=slot)
 
     def _block_table(self, states: Sequence[SequenceState],
                     pad_to: Optional[int] = None) -> np.ndarray:

@@ -28,14 +28,14 @@ import numpy as np
 import torch
 
 from . import stepprof as _stepprof
-from .engine import (InferenceEngine, SequenceState, _round_up_pow2,
-                     _tp_unsupported)
+from .engine import InferenceEngine, SequenceState, _round_up_pow2
 from .speculative import (
     _emitted,
     _greedy_accept,
     _RoundGraph,
     _RoundGraphOwner,
     _slots,
+    follow_key,
     round_replay_equals_eager,
     run_body,
 )
@@ -75,8 +75,6 @@ class NgramSpeculator(_RoundGraphOwner):
     def __init__(self, target: InferenceEngine, k: int = 8, g: int = 2):
         if k < 1 or g < 1:
             raise ValueError(f"k and g must be >= 1, got k={k}, g={g}")
-        if target.tp_size > 1:
-            raise _tp_unsupported("speculation")
         self.target = target
         self.k = k
         self.g = g
@@ -134,16 +132,20 @@ class NgramSpeculator(_RoundGraphOwner):
         props = torch.stack(props, dim=1)
         poss = g.n[:, None] - 1 + ar[None]
         run = torch.gather(g.hist, 1, poss.long())
+        # in a serving group: the followers verify the same run
+        t.spec_share_(run)
         blks, slots = _slots(g.t_table, poss, T)
         lgs, _ = t._verify(t.params, tokens=run, positions=poss,
                            cache=t.cache, block_table=g.t_table,
                            slot_block_ids=blks, slot_ids=slots)
         m, picked = _greedy_accept(lgs, props)
         e = _emitted(m, picked, props)
+        cnt = m + 1
+        t.spec_share_(cnt)  # the followers advance by the leader's count
         g.hist.scatter_(1, (g.n[:, None] + ar[None]).long(), e)
         g.outs.index_copy_(0, g.r, e[None])
-        g.cnts.index_copy_(0, g.r, (m + 1)[None])
-        g.n.add_(m + 1)
+        g.cnts.index_copy_(0, g.r, cnt[None])
+        g.n.add_(cnt)
         g.r.add_(1)
 
     def _refresh_body(self, g: _RoundGraph) -> None:
@@ -151,11 +153,12 @@ class NgramSpeculator(_RoundGraphOwner):
         logits after it, so the target comes back decode-ready."""
         t = self.target
         posF = g.n[:, None] - 1
+        last = torch.gather(g.hist, 1, posF.long())
+        t.spec_share_(last)
         blk, slot = _slots(g.t_table, posF, t.pc.block_tokens)
         lg, _ = t._verify_last(
-            t.params, tokens=torch.gather(g.hist, 1, posF.long()),
-            positions=posF, cache=t.cache, block_table=g.t_table,
-            slot_block_ids=blk, slot_ids=slot)
+            t.params, tokens=last, positions=posF, cache=t.cache,
+            block_table=g.t_table, slot_block_ids=blk, slot_ids=slot)
         g.t_logits.copy_(lg[:, -1])
 
     def round_replay_equals_eager(self, key: tuple) -> bool:
@@ -239,10 +242,17 @@ class NgramSpeculator(_RoundGraphOwner):
                     g.hist.copy_(prev.hist)
                 prev = g
                 g.r.zero_()
-                run_body(eng, g, g.round, lambda: self._round_body(g),
-                         f"ngram_round{g.key}", R, (eng,))
-                run_body(eng, g, g.refresh, lambda: self._refresh_body(g),
-                         f"ngram_refresh{g.key}", 1, (eng,))
+                # a serving group's followers: the same starting state and
+                # the target's half of the same R rounds
+                eng._op("spec_load", follow_key(g), n=g.n, table=g.t_table)
+                eng._op(
+                    "spec_rounds", follow_key(g), R,
+                    body=lambda R: run_body(
+                        eng, g, g.round, lambda: self._round_body(g),
+                        f"ngram_round{g.key}", R, (eng,)),
+                    refresh=lambda: run_body(
+                        eng, g, g.refresh, lambda: self._refresh_body(g),
+                        f"ngram_refresh{g.key}", 1, (eng,)))
                 snap = torch.cat([g.outs[:R].flatten(), g.cnts[:R].flatten()])
                 lrows = [g.t_logits[b].clone() for b in range(B)]
             _stepprof.note_sync("spec_tokens")

@@ -78,7 +78,6 @@ from .engine import (
     _round_up_pow2,
     _row_keys,
     _sampling_logits,
-    _tp_unsupported,
 )
 
 # the accept draws' key: a row key mixed with this salt, so they never
@@ -273,6 +272,14 @@ class _RoundGraph:
         return [t for t in vars(self).values() if isinstance(t, torch.Tensor)]
 
 
+def follow_key(g: _RoundGraph) -> tuple:
+    """The key of the followers' round buffers of a leader's round graph
+    ``g`` (``InferenceEngine._follow_graph``): its batch bucket, target
+    table width and proposal count."""
+    return ("follow", g.t_table.shape[0], g.t_table.shape[1],
+            g.outs.shape[2] - 1)
+
+
 def _ptrs(engines: Sequence[InferenceEngine]) -> tuple:
     return tuple(p for e in engines
                  for p in (e.cache.data_ptr(), *e._param_ptrs()))
@@ -282,14 +289,15 @@ def run_body(target: InferenceEngine, g: _RoundGraph, body: _Body,
              fn: Callable[[], None], name: str, times: int,
              engines: Sequence[InferenceEngine]) -> None:
     """Run ``fn`` (a body over ``g``'s buffers) ``times`` times on the
-    target's stream: eagerly on the CPU; on the card
-    the body's graph replays, and a body seen for the first time runs once
-    eagerly and is captured after it (``target._capture_graph``, kind
-    ``"spec"``).  Before a replay the caches and weights of ``engines``
-    must be those the graph was captured with."""
+    target's stream: eagerly on the CPU and in a serving group whose
+    collectives run on the host (gloo); otherwise on the card the body's
+    graph replays, and a body seen for the first time runs once eagerly and
+    is captured after it (``target._capture_graph``, kind ``"spec"``).
+    Before a replay the caches and weights of ``engines`` must be those the
+    graph was captured with."""
     if times <= 0:
         return
-    if target.device.type != "cuda":
+    if target.device.type != "cuda" or not target._capture_ok:
         for _ in range(times):
             fn()
         return
@@ -382,9 +390,9 @@ class SpeculativeDecoder(_RoundGraphOwner):
                              f"{draft.device}: one device")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        for e in (target, draft):
-            if e.tp_size > 1:
-                raise _tp_unsupported("speculation")
+        if draft.group_size > 1:
+            raise ValueError("the draft is an unsharded engine beside the "
+                             "target's serving group, on its leader")
         self.target = target
         self.draft = draft
         self.k = k
@@ -635,6 +643,8 @@ class SpeculativeDecoder(_RoundGraphOwner):
             props.append(tok)
         props = torch.stack(props, dim=1)  # [B, k]
         run = torch.cat([g.win[:, -1:], props], dim=1)
+        # in a serving group: the followers verify the same run
+        t.spec_share_(run)
         poss = g.n[:, None] - 1 + ar[None, :k + 1]
         blks, slots = _slots(g.t_table, poss, T)
         lgs, _ = t._verify(t.params, tokens=run, positions=poss,
@@ -652,6 +662,7 @@ class SpeculativeDecoder(_RoundGraphOwner):
         # nothing and carries its state unchanged (its proposals land past
         # the budget, in pages sized for this overshoot: rem + k)
         cnt = torch.minimum(m + 1, g.n_max - g.n)
+        t.spec_share_(cnt)  # the followers advance by the leader's count
         n2 = g.n + cnt
         win2 = torch.gather(torch.cat([g.win, e], dim=1), 1,
                             (cnt[:, None] + ar[None]).long())
@@ -675,8 +686,10 @@ class SpeculativeDecoder(_RoundGraphOwner):
         target comes back decode-ready."""
         t = self.target
         posF = g.n[:, None] - 1
+        last = g.win[:, -1:].contiguous()
+        t.spec_share_(last)
         blk, slot = _slots(g.t_table, posF, t.pc.block_tokens)
-        lg, _ = t._verify_last(t.params, tokens=g.win[:, -1:],
+        lg, _ = t._verify_last(t.params, tokens=last,
                                positions=posF, cache=t.cache,
                                block_table=g.t_table, slot_block_ids=blk,
                                slot_ids=slot)
@@ -767,8 +780,11 @@ class SpeculativeDecoder(_RoundGraphOwner):
 
             with t_eng._on_engine_stream():
                 g.t_table.copy_(torch.from_numpy(t_table))
-                g.d_table.copy_(torch.from_numpy(d_table))
                 g.n.copy_(i32([len(st.tokens) for st in st_ts] + pad_n))
+                # a serving group's followers start from the same state
+                t_eng._op("spec_load", follow_key(g), n=g.n,
+                          table=g.t_table)
+                g.d_table.copy_(torch.from_numpy(d_table))
                 g.n_max.copy_(i32(list(n_max) + pad_n))
                 g.win.copy_(i32([st.tokens[-(k + 2):] for st in st_ts]
                                 + [[0] * (k + 2)] * npad))
@@ -799,10 +815,14 @@ class SpeculativeDecoder(_RoundGraphOwner):
             _stepprof.note_dispatch("spec_round")
             with t_eng._on_engine_stream():
                 g.r.zero_()
-                run_body(t_eng, g, g.round, lambda: self._round_body(g),
-                         f"spec_round{g.key}", R, self._engines)
-                run_body(t_eng, g, g.refresh, lambda: self._refresh_body(g),
-                         f"spec_refresh{g.key}", 1, self._engines)
+                t_eng._op(
+                    "spec_rounds", follow_key(g), R,
+                    body=lambda R: run_body(
+                        t_eng, g, g.round, lambda: self._round_body(g),
+                        f"spec_round{g.key}", R, self._engines),
+                    refresh=lambda: run_body(
+                        t_eng, g, g.refresh, lambda: self._refresh_body(g),
+                        f"spec_refresh{g.key}", 1, self._engines))
                 snap = torch.cat([g.outs[:R].flatten(), g.cnts[:R].flatten(),
                                   g.ms[:R].flatten()])
             inflight.append((snap, R))

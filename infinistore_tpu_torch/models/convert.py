@@ -35,37 +35,42 @@ def _leaf(x: Any, cfg: LlamaConfig, device,
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
-                    device, tp_rank: int = 0, tp: int = 1) -> Params:
+                    device, tp_rank: int = 0, tp: int = 1, pp_rank: int = 0,
+                    pp: int = 1) -> Params:
     """The port's parameters from the reference pytree, whose leaves are
     numpy arrays (or anything ``np.asarray`` takes).
 
-    ``tp_rank``/``tp``: the rank's tensor-parallel shard
-    (``parallel.sharding.llama_inference_specs``), each numpy leaf sliced
-    before it reaches ``device``, so no rank holds the whole model there."""
-    from ..parallel.sharding import llama_inference_specs, shard_leaf
+    ``tp_rank``/``tp`` and ``pp_rank``/``pp``: the rank's shard
+    (``parallel.sharding.shard_tree``: its stage's layers, each sliced
+    over tp as ``llama_inference_specs`` says), each numpy leaf sliced
+    before it reaches ``device``, so no rank holds the whole model
+    there."""
+    from ..parallel.sharding import llama_inference_specs, shard_tree
 
-    specs = llama_inference_specs(tree)
+    tree = {"embed": np.asarray(tree["embed"]),
+            "layers": {k: np.asarray(v) for k, v in tree["layers"].items()},
+            "ln_out": np.asarray(tree["ln_out"]),
+            "lm_head": np.asarray(tree["lm_head"])}
 
-    def leaf(x, dim, dtype=None):
-        x = shard_leaf(np.asarray(x), dim, tp_rank, tp)
-        return _leaf(x, cfg, device, dtype)
+    def leaf(x, name):
+        return _leaf(x, cfg, device, torch.float32
+                     if name in _FLOAT32_LEAVES else None)
 
-    return {
-        "embed": leaf(tree["embed"], specs["embed"]),
-        "layers": {k: leaf(v, specs["layers"].get(k), torch.float32
-                           if k in _FLOAT32_LEAVES else None)
-                   for k, v in tree["layers"].items()},
-        "ln_out": leaf(tree["ln_out"], specs["ln_out"]),
-        "lm_head": leaf(tree["lm_head"], specs["lm_head"]),
-    }
+    return shard_tree(tree, llama_inference_specs(tree), tp_rank, tp,
+                      pp_rank, pp, leaf)
 
 
-def bank_from_jax(bank: Any, cfg: LlamaConfig, device):
+def bank_from_jax(bank: Any, cfg: LlamaConfig, device, tp_rank: int = 0,
+                  tp: int = 1, pp_rank: int = 0, pp: int = 1):
     """The port's ``LoraBank`` from a reference ``LoraBank`` (its ``tree``
     of (A, B) stacks, ``names`` and ``scale``), every stack carried across
-    as numpy in ``cfg.dtype``."""
+    as numpy in ``cfg.dtype``.  ``tp_rank``/``tp``, ``pp_rank``/``pp``:
+    only the rank's shard (``parallel.sharding.shard_lora_tree``)."""
+    from ..parallel.sharding import shard_lora_tree
     from .lora import LoraBank
 
-    tree = {t: (_leaf(A, cfg, device), _leaf(B, cfg, device))
+    tree = {t: (np.asarray(A), np.asarray(B))
             for t, (A, B) in bank.tree.items()}
-    return LoraBank(tree, bank.names, bank.scale)
+    return LoraBank(shard_lora_tree(tree, tp_rank, tp, pp_rank, pp,
+                                    lambda x: _leaf(x, cfg, device)),
+                    bank.names, bank.scale)

@@ -225,10 +225,10 @@ def _params_tail(get, state: Mapping[str, Any], cfg,
 
 
 def params_from_hf(model_or_state: Any, cfg: Optional[LlamaConfig] = None,
-                   consume: bool = False, tp_rank: int = 0, tp: int = 1,
-                   device=None) -> Params:
+                   consume: bool = False, tp_rank: int = 0,
+                   tp: int = 1) -> Params:
     """An HF dense decoder (or its state dict) as the port's params, in
-    ``cfg.dtype`` on the tensors' device (or on ``device``).
+    ``cfg.dtype`` on the tensors' device.
 
     ``consume``: remove each tensor from the state dict once it is copied,
     so a state dict holding the only reference to its tensors frees them as
@@ -237,9 +237,7 @@ def params_from_hf(model_or_state: Any, cfg: Optional[LlamaConfig] = None,
 
     ``tp_rank``/``tp``: only the rank's tensor-parallel shard
     (``parallel.sharding.llama_inference_specs``) is imported, each leaf
-    sliced one layer at a time before it is copied to ``device``; with a
-    state dict on the host, the device then holds the shard and no more
-    than one layer's leaf beside it."""
+    sliced one layer at a time before it is stacked."""
     from ..parallel.sharding import llama_inference_specs, shard_leaf
 
     cfg, state = _state_of(model_or_state, cfg, config_from_hf)
@@ -253,8 +251,7 @@ def params_from_hf(model_or_state: Any, cfg: Optional[LlamaConfig] = None,
         dim = dims.get(name)
         if dim is not None and per_layer:
             dim -= 1  # the spec counts the stacked layer axis
-        t = shard_leaf(t, dim, tp_rank, tp)
-        return t if device is None else t.to(device)
+        return shard_leaf(t, dim, tp_rank, tp)
 
     leaves: Dict[str, torch.Tensor] = {}
     for li in range(cfg.n_layers):

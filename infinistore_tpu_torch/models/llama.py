@@ -21,7 +21,16 @@ counts come from the weights' shapes, an all-reduce follows ``attn @ wo``
 and ``... @ w_down`` (before any residual or post-norm, where XLA's GSPMD
 puts it for the reference), the vocab-sharded logits are all-gathered
 before a final soft-cap, and attention runs the tensor-parallel
-compositions on the rank's head shard (``models/attention.py``).
+compositions on the rank's head shard (``models/attention.py``).  A LoRA
+bank sharded as the weights are (``parallel.sharding.shard_lora_tree``)
+adds each rank's partial delta before those all-reduces.
+
+With ``pp`` (a ``parallel.PPGroup``; ``params`` and the cache hold the
+rank's stage of the layers) a forward runs its stage: stage 0 embeds, each
+stage runs its layers and hands the hidden state to the next, the last
+applies the final norm and the LM head, and the logits reach every stage
+(``PPGroup.broadcast_last_``).  The KV a prefill returns is the stage's
+layers'.
 """
 
 from __future__ import annotations
@@ -124,7 +133,8 @@ def scaled(cfg: LlamaConfig, **kw) -> LlamaConfig:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device, tp_rank: int = 0, tp: int = 1) -> Params:
+                device, tp_rank: int = 0, tp: int = 1, pp_rank: int = 0,
+                pp: int = 1) -> Params:
     """Random weights drawn normal / sqrt(fan_in) as the reference does
     (``llama.py:126-169``), from ``generator`` (which must live on
     ``device``), straight on ``device``.  Each layer's draw is made in fp32
@@ -133,20 +143,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     reproduced; tests carry reference weights across with
     ``models/convert.py``.
 
-    ``tp_rank``/``tp``: only the rank's tensor-parallel shard is kept
-    (``parallel.sharding.llama_inference_specs``): every layer is drawn
-    whole, as at ``tp = 1``, and sliced, so the shard holds exactly the
-    whole model's values and the device never holds more than the shard
-    and one layer's draw."""
-    from ..parallel.sharding import llama_inference_specs, shard_leaf
+    ``tp_rank``/``tp`` and ``pp_rank``/``pp``: only the rank's shard is
+    kept (``parallel.sharding.shard_tree``: its stage's layers, its
+    tensor-parallel slice of each, ``embed`` on stage 0, ``ln_out`` and
+    ``lm_head`` on the last stage): every layer is drawn whole, as on one
+    rank, and sliced or dropped, so the shard holds exactly the whole
+    model's values and the device never holds more than the shard and one
+    layer's draw."""
+    from ..parallel.sharding import (llama_inference_specs, shard_leaf,
+                                     stage_layers)
 
     hd = cfg.head_dim
     L = cfg.n_layers
+    lo, hi = stage_layers(L, pp_rank, pp)
     specs = llama_inference_specs(cfg=cfg)
     dims = {**specs["layers"], "embed": specs["embed"],
             "lm_head": specs["lm_head"]}
 
-    def dense(shape, fan_in, name):
+    def dense(shape, fan_in, name, keep=True):
         stacked = len(shape) == 3
         dim = dims.get(name)
         if dim is not None and stacked:
@@ -155,16 +169,22 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         kept = list(row)
         if dim is not None:
             kept[dim] //= tp
-        out = torch.empty(((shape[0],) if stacked else ()) + tuple(kept),
-                          dtype=cfg.dtype, device=device)
+        out = torch.empty(((hi - lo,) if stacked else ()) + tuple(kept)
+                          if keep else (0,), dtype=cfg.dtype, device=device)
         for i in range(shape[0] if stacked else 1):
             w = torch.randn(row, generator=generator, dtype=torch.float32,
                             device=device)
+            if not keep or (stacked and not lo <= i < hi):
+                continue  # drawn to keep the stream, held by another stage
             w = shard_leaf(w, dim, tp_rank, tp)
-            (out[i] if stacked else out).copy_(w / math.sqrt(fan_in))
+            (out[i - lo] if stacked else out).copy_(w / math.sqrt(fan_in))
         return out
 
+    def const(shape, fill):
+        return torch.full(shape, fill, dtype=cfg.dtype, device=device)
+
     fill = 0.0 if cfg.norm_offset else 1.0  # Gemma's (1 + w): zeros
+    n = hi - lo
     layers = {
         "wq": dense((L, cfg.dim, cfg.n_heads * hd), cfg.dim, "wq"),
         "wk": dense((L, cfg.dim, cfg.n_kv_heads * hd), cfg.dim, "wk"),
@@ -173,13 +193,12 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "w_gate": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim, "w_gate"),
         "w_up": dense((L, cfg.dim, cfg.ffn_dim), cfg.dim, "w_up"),
         "w_down": dense((L, cfg.ffn_dim, cfg.dim), cfg.ffn_dim, "w_down"),
-        "ln_attn": torch.full((L, cfg.dim), fill, dtype=cfg.dtype, device=device),
-        "ln_mlp": torch.full((L, cfg.dim), fill, dtype=cfg.dtype, device=device),
+        "ln_attn": const((n, cfg.dim), fill),
+        "ln_mlp": const((n, cfg.dim), fill),
     }
     if cfg.post_norms:
         for name in ("ln_post_attn", "ln_post_mlp"):
-            layers[name] = torch.full((L, cfg.dim), fill, dtype=cfg.dtype,
-                                      device=device)
+            layers[name] = const((n, cfg.dim), fill)
     if cfg.attn_bias:
         # drawn [L, 1, n] as the reference draws them: the head axis is
         # the last either way, so shard it as wq's
@@ -187,13 +206,16 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         layers["bk"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim, "wk")[:, 0]
         layers["bv"] = dense((L, 1, cfg.n_kv_heads * hd), cfg.dim, "wv")[:, 0]
     if cfg.qk_norm:
-        layers["q_norm"] = torch.ones((L, hd), dtype=cfg.dtype, device=device)
-        layers["k_norm"] = torch.ones((L, hd), dtype=cfg.dtype, device=device)
+        layers["q_norm"] = const((n, hd), 1.0)
+        layers["k_norm"] = const((n, hd), 1.0)
+    last = pp_rank == pp - 1
     return {
-        "embed": dense((cfg.vocab_size, cfg.dim), cfg.dim, "embed"),
+        "embed": dense((cfg.vocab_size, cfg.dim), cfg.dim, "embed",
+                       keep=pp_rank == 0),
         "layers": layers,
-        "ln_out": torch.full((cfg.dim,), fill, dtype=cfg.dtype, device=device),
-        "lm_head": dense((cfg.dim, cfg.vocab_size), cfg.dim, "lm_head"),
+        "ln_out": const((cfg.dim if last else 0,), fill),
+        "lm_head": dense((cfg.dim, cfg.vocab_size), cfg.dim, "lm_head",
+                         keep=last),
     }
 
 
@@ -325,11 +347,40 @@ def _block_tail(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     return x + m
 
 
-def _no_lora_under_tp(tp, lora) -> None:
-    if tp is not None and lora is not None:
-        raise NotImplementedError(
-            "LoRA under tensor parallelism is not ported yet (ROADMAP.md "
-            "queue 1 item 5)")
+def _stage_in(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, pp,
+              shape) -> torch.Tensor:
+    """The hidden state a stage starts from: the embedded ``tokens`` on
+    stage 0 (and without ``pp``), the previous stage's output of
+    ``shape`` elsewhere."""
+    if pp is None or pp.is_first:
+        return _embed(params, cfg, tokens)
+    return pp.recv_prev(shape, params["layers"]["wq"].dtype, tokens.device)
+
+
+def _stage_layers(params: Params, pp) -> range:
+    """The global indices of the layers ``params`` hold."""
+    first = 0 if pp is None else pp.first_layer
+    return range(first, first + params["layers"]["wq"].shape[0])
+
+
+def _stage_out(params: Params, cfg: LlamaConfig, x: torch.Tensor, tp, pp,
+               select=None) -> torch.Tensor:
+    """The logits after a stage: a stage before the last hands ``x`` to
+    the next; the last applies ``select`` (the rows that need logits),
+    the final norm and the LM head; with ``pp`` every stage gets the last
+    stage's logits."""
+    if pp is not None and not pp.is_last:
+        pp.send_next(x)
+    if select is not None:
+        x = select(x)
+    if pp is None or pp.is_last:
+        logits = _final_logits(params, cfg, _norm(cfg, x, params["ln_out"]),
+                               tp)
+    else:
+        logits = x.new_empty(x.shape[:-1] + (cfg.vocab_size,))
+    if pp is not None:
+        pp.broadcast_last_(logits)
+    return logits
 
 
 def prefill_forward(
@@ -343,6 +394,7 @@ def prefill_forward(
     adapter_ids: Optional[torch.Tensor] = None,
     lora_scale: float = 1.0,
     tp=None,
+    pp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
@@ -371,18 +423,19 @@ def prefill_forward(
 
     ``tp`` (a ``parallel.TPGroup``; ``params`` the rank's shard): the KV
     and the prefix are the rank's head shard [..., Hkv/tp, D], the logits
-    whole on every rank.  The same keyword serves the other forwards.
+    whole on every rank.  ``pp`` (a ``parallel.PPGroup``; ``params`` the
+    rank's stage): the KV and the prefix hold the stage's layers.  The
+    same keywords serve the other forwards.
     """
-    _no_lora_under_tp(tp, lora)
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]
     start = P if prefix_len is None else prefix_len
     positions = (torch.arange(S, device=tokens.device) + start).expand(B, S)
-    x = _embed(params, cfg, tokens)
+    x = _stage_in(params, cfg, tokens, pp, (B, S, cfg.dim))
     kvs = []
-    for li in range(cfg.n_layers):
-        layer = _layer(params, li)
-        lkw = dict(lora=_layer_lora(lora, li), adapter_ids=adapter_ids,
+    for j, li in enumerate(_stage_layers(params, pp)):
+        layer = _layer(params, j)
+        lkw = dict(lora=_layer_lora(lora, j), adapter_ids=adapter_ids,
                    lora_scale=lora_scale)
         win = _window_for(cfg, li)
         q, k, v = _attn_qkv(layer, cfg, _norm(cfg, x, layer["ln_attn"]),
@@ -391,8 +444,8 @@ def prefill_forward(
         if prefix_kv is None:
             akw = dict(window=win, softcap=cfg.attn_softcap)
         else:
-            k = torch.cat([prefix_kv[li, 0], k], dim=1)
-            v = torch.cat([prefix_kv[li, 1], v], dim=1)
+            k = torch.cat([prefix_kv[j, 0], k], dim=1)
+            v = torch.cat([prefix_kv[j, 1], v], dim=1)
             akw = dict(q_offset=P,
                        prefix_pad=P if prefix_len is not None else None,
                        prefix_len=prefix_len, window=win,
@@ -404,10 +457,9 @@ def prefill_forward(
                 q, k, v, tp.size, n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_kv_heads, **akw)
         x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
-    if logits_rows is not None:
-        x = x.index_select(1, logits_rows)
-    x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x, tp), torch.stack(kvs)
+    logits = _stage_out(params, cfg, x, tp, pp, None if logits_rows is None
+                        else lambda h: h.index_select(1, logits_rows))
+    return logits, torch.stack(kvs)
 
 
 def decode_forward(
@@ -424,6 +476,7 @@ def decode_forward(
     adapter_ids: Optional[torch.Tensor] = None,
     lora_scale: float = 1.0,
     tp=None,
+    pp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token paged decode.
 
@@ -433,32 +486,31 @@ def decode_forward(
     this token's K/V (pad rows carry ``n_blocks`` and write nothing).
     Returns (logits [B, V], cache).  The cache is updated IN PLACE (the
     reference donates it to the compiled step instead); the returned tensor
-    is the argument.  With ``tp``, the cache is the rank's head shard.
+    is the argument.  With ``tp``, the cache is the rank's head shard; with
+    ``pp``, it holds the stage's layers.
     """
-    _no_lora_under_tp(tp, lora)
     B = tokens.shape[0]
-    x = _embed(params, cfg, tokens)[:, None, :]  # [B, 1, dim]
+    x = _stage_in(params, cfg, tokens, pp, (B, cfg.dim))[:, None, :]
     pos = positions[:, None]
-    for li in range(cfg.n_layers):
-        layer = _layer(params, li)
-        lkw = dict(lora=_layer_lora(lora, li), adapter_ids=adapter_ids,
+    for j, li in enumerate(_stage_layers(params, pp)):
+        layer = _layer(params, j)
+        lkw = dict(lora=_layer_lora(lora, j), adapter_ids=adapter_ids,
                    lora_scale=lora_scale)
         q, k, v = _attn_qkv(layer, cfg, _norm(cfg, x, layer["ln_attn"]), pos,
                             **lkw)
-        cache = write_token_kv(cache, li, slot_block_ids, slot_ids,
+        cache = write_token_kv(cache, j, slot_block_ids, slot_ids,
                                k[:, 0], v[:, 0])
         akw = dict(window=_window_for(cfg, li), softcap=cfg.attn_softcap)
         if tp is None:
-            attn = paged_decode_attention(q[:, 0], cache[li], block_table,
+            attn = paged_decode_attention(q[:, 0], cache[j], block_table,
                                           seq_lens, **akw)
         else:
             attn = _attention.paged_decode_attention_tp(
-                q[:, 0], cache[li], block_table, seq_lens, tp.size,
+                q[:, 0], cache[j], block_table, seq_lens, tp.size,
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, **akw)
         x = _block_tail(layer, cfg, x, attn.reshape(B, -1)[:, None, :],
                         tp=tp, **lkw)
-    x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x[:, 0], tp), cache
+    return _stage_out(params, cfg, x[:, 0], tp, pp), cache
 
 
 def verify_forward(
@@ -475,6 +527,7 @@ def verify_forward(
     lora_scale: float = 1.0,
     last_only: bool = False,
     tp=None,
+    pp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-token paged step: a short run of tokens per sequence against the
     paged cache in ONE forward (the speculative-decode verify step: the
@@ -493,23 +546,23 @@ def verify_forward(
     ``last_only=True`` projects only the final position through the LM head
     and returns logits [B, 1, V]: a resync or refresh that needs only the
     next-token distribution skips S-1 [dim, V] projections.
+
+    ``tp``/``pp``: as ``decode_forward``'s (the attention is head-local,
+    so a rank's head shard runs it as it is).
     """
-    _no_lora_under_tp(tp, lora)
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens)  # [B, S, dim]
-    for li in range(cfg.n_layers):
-        layer = _layer(params, li)
-        lkw = dict(lora=_layer_lora(lora, li), adapter_ids=adapter_ids,
+    x = _stage_in(params, cfg, tokens, pp, (B, S, cfg.dim))
+    for j, li in enumerate(_stage_layers(params, pp)):
+        layer = _layer(params, j)
+        lkw = dict(lora=_layer_lora(lora, j), adapter_ids=adapter_ids,
                    lora_scale=lora_scale)
         q, k, v = _attn_qkv(layer, cfg, _norm(cfg, x, layer["ln_attn"]),
                             positions, **lkw)
-        cache = write_tokens_kv(cache, li, slot_block_ids, slot_ids, k, v)
+        cache = write_tokens_kv(cache, j, slot_block_ids, slot_ids, k, v)
         attn = paged_multitoken_attention(
-            q, cache[li], block_table, positions,
+            q, cache[j], block_table, positions,
             window=_window_for(cfg, li), softcap=cfg.attn_softcap,
         )
         x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
-    if last_only:
-        x = x[:, -1:]
-    x = _norm(cfg, x, params["ln_out"])
-    return _final_logits(params, cfg, x, tp), cache
+    return _stage_out(params, cfg, x, tp, pp,
+                      (lambda h: h[:, -1:]) if last_only else None), cache

@@ -11,7 +11,9 @@ static buffer).  Adapter 0 is the base model (zero delta).
 
 Targets are the attention projections (``wq wk wv wo``), as in the
 reference.  ``lora_delta`` is plain PyTorch: the reference computes it
-outside any Pallas kernel.
+outside any Pallas kernel.  On a serving group a bank is sliced as the
+weights it adapts (``LoraBank.shard``): ``wq``/``wk``/``wv``'s B by
+columns, ``wo``'s A by rows, each stage its layers.
 """
 
 from __future__ import annotations
@@ -57,6 +59,23 @@ class LoraBank:
     def n_adapters(self) -> int:
         return len(self.names)
 
+    def is_whole(self, cfg: LlamaConfig) -> bool:
+        """Whether every stack has the whole model's layers and widths, as
+        opposed to one rank's shard (``parallel.sharding.shard_lora_tree``)."""
+        shapes = _target_shapes(cfg)
+        return all(A.shape[0] == cfg.n_layers and A.shape[2] == shapes[t][0]
+                   and B.shape[3] == shapes[t][1]
+                   for t, (A, B) in self.tree.items())
+
+    def shard(self, tp_rank: int, tp: int, pp_rank: int = 0,
+              pp: int = 1) -> "LoraBank":
+        """This bank's ``(pp_rank, tp_rank)`` shard, sliced as the base
+        weights are (``parallel.sharding.shard_lora_tree``)."""
+        from ..parallel.sharding import shard_lora_tree
+
+        return LoraBank(shard_lora_tree(self.tree, tp_rank, tp, pp_rank, pp),
+                        self.names, self.scale)
+
     def adapter_id(self, name: Optional[str]) -> int:
         if name is None:
             return 0
@@ -77,13 +96,23 @@ def init_lora_bank(
     alpha: Optional[float] = None,
     targets: Sequence[str] = TARGETS,
     init_scale: float = 0.01,
+    tp_rank: int = 0,
+    tp: int = 1,
+    pp_rank: int = 0,
+    pp: int = 1,
 ) -> LoraBank:
     """Random bank drawn from ``generator`` (which must live on ``device``)
     straight on ``device``: A ~ normal / sqrt(in), B = ``init_scale`` *
     normal (the classic init has B = 0; a nonzero B makes each adapter
     change the model).  Slot 0 is the base model (zero A).  The
     reference's ``jax.random`` stream is not reproduced; tests carry a
-    reference bank across with ``models/convert.py:bank_from_jax``."""
+    reference bank across with ``models/convert.py:bank_from_jax``.
+
+    ``tp_rank``/``tp``, ``pp_rank``/``pp``: only the rank's shard is kept
+    (``parallel.sharding.shard_lora_tree``), each target's stacks drawn
+    whole, as on one rank, and sliced before the next target's draw."""
+    from ..parallel.sharding import shard_lora_tree
+
     shapes = _target_shapes(cfg)
     names = ["base"] + [str(a) for a in adapters]
     n = len(names)
@@ -96,7 +125,8 @@ def init_lora_bank(
                                      generator=generator,
                                      dtype=torch.float32, device=device)
         A[:, 0] = 0.0
-        tree[t] = (A.to(cfg.dtype), B.to(cfg.dtype))
+        tree.update(shard_lora_tree({t: (A, B)}, tp_rank, tp, pp_rank, pp,
+                                    lambda x: x.to(cfg.dtype)))
     return LoraBank(tree, names, (alpha or rank) / rank)
 
 

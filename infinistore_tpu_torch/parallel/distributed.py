@@ -1,5 +1,6 @@
-"""The multi-process runtime: process-group init, hybrid meshes and the
-collectives of one tensor-parallel group.
+"""The multi-process runtime: process-group init, hybrid meshes, the
+collectives of one tensor-parallel group and the hand-offs of one
+layer-sharded (pipeline) group.
 
 Counterpart of the reference's ``parallel/distributed.py``.  The reference
 wires up ``jax.distributed`` and lets one controller drive every device;
@@ -13,7 +14,8 @@ sets them) and is a no-op in a single process with nothing configured, so
 the same launcher runs everywhere.  ``make_hybrid_mesh`` lays dp outermost
 over the host groups.  ``TPGroup`` holds the collectives the tensor-parallel
 forwards and the serving engine's mirror use (``models/llama.py``,
-``engine/engine.py``).
+``engine/engine.py``); ``PPGroup`` a layer-sharded rank's hand-offs to its
+neighbouring stages.
 """
 
 from __future__ import annotations
@@ -193,7 +195,16 @@ class TPGroup:
     @classmethod
     def from_mesh(cls, mesh) -> "TPGroup":
         """The group of the mesh's ``tp`` axis this rank belongs to."""
-        return cls(mesh.get_group("tp"), mesh.tp_ctrl_group)
+        return cls(mesh.get_group("tp"), mesh.ctrl_group)
+
+    @classmethod
+    def serving(cls, mesh) -> "TPGroup":
+        """The ranks of this rank's serving engine: the ``pp x tp`` block
+        of its ``(dp, sp)`` coordinate (``mesh_over``), ranked ``pp``-major,
+        ``tp``-minor.  Its rank 0 (stage 0, tp rank 0) leads."""
+        group = mesh.serve_group
+        return cls(group if group is not None else mesh.get_group("tp"),
+                   mesh.ctrl_group)
 
     @property
     def is_leader(self) -> bool:
@@ -229,9 +240,9 @@ class TPGroup:
         if y is not t:
             t.copy_(y)
 
-    def gather(self, x, dim: int):
-        """On the leader: the ranks' ``x`` concatenated along ``dim``; on
-        the others: None."""
+    def gather_parts(self, x) -> Optional[list]:
+        """On the leader: the ranks' ``x`` in rank order, on ``x``'s
+        device; on the others: None."""
         import torch
         import torch.distributed as dist
 
@@ -241,7 +252,7 @@ class TPGroup:
         dist.gather(y, parts, dst=self.leader, group=self.group)
         if not self.is_leader:
             return None
-        return torch.cat(parts, dim=dim).to(x.device)
+        return [p.to(x.device) for p in parts]
 
     def scatter_(self, out, chunks: Optional[List[Any]] = None) -> None:
         """Rank r receives the leader's ``chunks[r]`` into ``out``, in
@@ -278,3 +289,78 @@ class TPGroup:
         out = [None] * self.size if self.is_leader else None
         dist.gather_object(obj, out, dst=self.leader, group=self.ctrl)
         return out
+
+
+class PPGroup:
+    """One rank's stage of a layer-sharded (pipeline) serving group: the
+    contiguous layer range it holds, the hidden state's hand-off to the
+    next stage and the logits' broadcast from the last.
+
+    ``group`` is the mesh's ``pp`` group of this rank (the ranks with its
+    ``tp`` index, one per stage, in stage order).  Stage ``s`` holds layers
+    ``[s * L/pp, (s + 1) * L/pp)``.  A forward runs its stages in sequence:
+    stage 0 embeds, each stage runs its layers and sends the hidden state
+    ``[B, S, dim]`` to the next (a point-to-point send; every tp rank of a
+    stage sends its own, identical copy to its counterpart), the last
+    applies the final norm and the LM head, and its logits reach every
+    stage by a broadcast.  Over gloo a CUDA tensor is staged through host
+    memory (``host_staged``); over NCCL a CUDA graph captures the
+    hand-offs."""
+
+    def __init__(self, group, n_layers: int):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.stage = dist.get_rank(group)
+        if n_layers % self.size:
+            raise ValueError(f"n_layers={n_layers} must divide over "
+                             f"pp={self.size}")
+        self.n_local = n_layers // self.size
+        self.first_layer = self.stage * self.n_local
+        self.backend = str(dist.get_backend(group))
+        self.host_staged = self.backend == "gloo"
+        self._ranks = [dist.get_global_rank(group, s)
+                       for s in range(self.size)]
+
+    @classmethod
+    def from_mesh(cls, mesh, n_layers: int) -> "PPGroup":
+        """The group of the mesh's ``pp`` axis this rank belongs to."""
+        return cls(mesh.get_group("pp"), n_layers)
+
+    @property
+    def is_first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def is_last(self) -> bool:
+        return self.stage == self.size - 1
+
+    def send_next(self, x) -> None:
+        """``x`` to the next stage (blocks until it is taken over gloo)."""
+        import torch.distributed as dist
+
+        y = x.contiguous()
+        if self.host_staged and y.is_cuda:
+            y = y.cpu()
+        dist.send(y, dst=self._ranks[self.stage + 1], group=self.group)
+
+    def recv_prev(self, shape, dtype, device):
+        """The previous stage's ``send_next`` tensor of ``shape``."""
+        import torch
+        import torch.distributed as dist
+
+        staged = self.host_staged and torch.device(device).type == "cuda"
+        y = torch.empty(shape, dtype=dtype,
+                        device="cpu" if staged else device)
+        dist.recv(y, src=self._ranks[self.stage - 1], group=self.group)
+        return y.to(device) if staged else y
+
+    def broadcast_last_(self, t) -> None:
+        """The last stage's ``t`` into every stage's ``t``, in place."""
+        import torch.distributed as dist
+
+        y = t.cpu() if self.host_staged and t.is_cuda else t
+        dist.broadcast(y, src=self._ranks[-1], group=self.group)
+        if y is not t:
+            t.copy_(y)

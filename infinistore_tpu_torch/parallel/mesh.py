@@ -20,8 +20,9 @@ from typing import Optional
 
 AXES = ("dp", "pp", "sp", "tp")
 # how long the serving engine's control channel (the leader's op
-# broadcasts over each tp group) may wait: as long as a server may sit
-# idle.  A peer that dies still fails it at once, since its sockets close
+# broadcasts over each serving group) may wait: as long as a server may
+# sit idle.  A peer that dies still fails it at once, since its sockets
+# close
 CTRL_TIMEOUT_S = 7 * 24 * 3600.0
 
 
@@ -96,10 +97,14 @@ def mesh_over(shape: MeshShape):
     calls it.  Its device type follows the world's backend: ``cuda`` over
     NCCL, ``cpu`` over gloo (whose collectives run on the host).
 
-    Beside the mesh's own groups, each tp group gets a gloo twin with
-    ``CTRL_TIMEOUT_S``, the mesh's ``tp_ctrl_group`` on its members (None
-    elsewhere): the serving engine's leader broadcasts its ops there.
-    """
+    Beside the mesh's own groups, each serving group (the ``pp x tp``
+    ranks of one ``(dp, sp)`` coordinate: the ranks of one serving
+    engine) gets a gloo group with ``CTRL_TIMEOUT_S``, the mesh's
+    ``ctrl_group`` on its members (None elsewhere), where the engine's
+    leader broadcasts its ops; and, when ``pp > 1``, a group over the same
+    ranks on the world's backend, the mesh's ``serve_group`` (with
+    ``pp == 1`` the ``tp`` group is that group).  Both list their ranks
+    ``pp``-major, ``tp``-minor."""
     import datetime
 
     import torch
@@ -111,13 +116,21 @@ def mesh_over(shape: MeshShape):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = DeviceMesh(device_type, arr, mesh_dim_names=AXES)
     me = dist.get_rank()
-    ctrl = None
+    ctrl = serve = None
     timeout = datetime.timedelta(seconds=CTRL_TIMEOUT_S)
-    for row in arr.reshape(-1, shape.tp).tolist():
+    # (dp, pp, sp, tp) -> (dp, sp, pp, tp): one row per serving group
+    rows = arr.permute(0, 2, 1, 3).reshape(-1, shape.pp * shape.tp).tolist()
+    for row in rows:
         g = dist.new_group(row, backend="gloo", timeout=timeout)
         if me in row:
             ctrl = g
-    mesh.tp_ctrl_group = ctrl
+    if shape.pp > 1:
+        for row in rows:
+            g = dist.new_group(row)
+            if me in row:
+                serve = g
+    mesh.ctrl_group = ctrl
+    mesh.serve_group = serve
     return mesh
 
 

@@ -8,11 +8,12 @@ unchanged.  Only ``main`` differs: it serves the ``tiny`` model or a local
 HF checkpoint directory (``load_model``) on a ``--device`` (``cuda`` by
 default), and ``--role router`` hands the command line to the port's
 ``frontdoor.main``; ``--store-endpoints a,b,c`` (with ``--store-replicas``)
-shards the store over a ``cluster.RoutedStorePool``; ``--tp N`` serves on
-N tensor-parallel ranks over ``torch.distributed`` (``--dist-backend``):
-this process leads (rank 0: HTTP, scheduler, store) and starts the N-1
-followers itself; ``--pp`` raises, naming the ``ROADMAP.md`` item it waits
-for.
+shards the store over a ``cluster.RoutedStorePool``; ``--tp N`` and
+``--pp M`` serve on N x M ranks over ``torch.distributed``
+(``--dist-backend``), each rank holding its stage's ``1/M`` of the layers
+and its ``1/N`` of each layer's heads: this process leads (rank 0: HTTP,
+scheduler, store, the unsharded draft of ``--draft-model``) and starts
+the other ranks itself.
 
 The reference's serving loop is vLLM, which fronts its engine with an
 OpenAI-compatible HTTP server; a standalone framework needs the same last
@@ -2502,7 +2503,7 @@ def _is_moe_dir(name: str) -> bool:
 
 
 def load_model(name: str, device, seed: int = 0, tp_rank: int = 0,
-               tp: int = 1):
+               tp: int = 1, pp_rank: int = 0, pp: int = 1):
     """The counterpart of the reference ``serve.main``'s ``load_model``:
     ``(cfg, params, engine_fns)`` on ``device``, ``engine_fns`` routing a
     Mixtral checkpoint through the MoE forwards.
@@ -2515,9 +2516,10 @@ def load_model(name: str, device, seed: int = 0, tp_rank: int = 0,
     ``device`` and imported there by ``models.hf`` in the config's
     default dtype (bf16), freed from the state dict as it is stacked.
 
-    ``tp_rank``/``tp``: only that tensor-parallel rank's shard of a dense
-    model reaches ``device`` (a checkpoint is read into host memory and
-    sliced a layer at a time)."""
+    ``tp_rank``/``tp``, ``pp_rank``/``pp``: only that rank's shard of a
+    dense model reaches ``device`` (its stage's layers, its tensor-parallel
+    slice of each; a checkpoint is read into host memory, sliced a layer
+    at a time over tp and by stage over pp)."""
     import glob
     import types
 
@@ -2528,16 +2530,17 @@ def load_model(name: str, device, seed: int = 0, tp_rank: int = 0,
     if name == "tiny":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return TINY, init_params(TINY, gen, device, tp_rank=tp_rank,
-                                 tp=tp), {}
+        return TINY, init_params(TINY, gen, device, tp_rank=tp_rank, tp=tp,
+                                 pp_rank=pp_rank, pp=pp), {}
     if not os.path.isfile(os.path.join(name, "config.json")):
         raise SystemExit(f"{name!r} is neither 'tiny' nor a checkpoint "
                          f"directory holding a config.json")
     with open(os.path.join(name, "config.json")) as f:
         hf_config = types.SimpleNamespace(**json.load(f))
     state: Dict[str, Any] = {}
+    sharded = tp * pp > 1
     for path in sorted(glob.glob(os.path.join(name, "*.safetensors"))):
-        state.update(_read_safetensors(path, device if tp == 1 else "cpu"))
+        state.update(_read_safetensors(path, "cpu" if sharded else device))
     if not state:
         raise SystemExit(f"no *.safetensors weights in {name!r}")
     from .models import hf
@@ -2552,12 +2555,13 @@ def load_model(name: str, device, seed: int = 0, tp_rank: int = 0,
             "decode_fn": moe_decode_forward,
             "verify_fn": moe_verify_forward,
         }
+    from .parallel.sharding import llama_inference_specs, shard_tree
+
     cfg = hf.config_from_hf(hf_config)
-    if tp > 1:
-        return cfg, hf.params_from_hf(state, cfg, consume=True,
-                                      tp_rank=tp_rank, tp=tp,
-                                      device=device), {}
-    return cfg, hf.params_from_hf(state, cfg, consume=True), {}
+    params = hf.params_from_hf(state, cfg, consume=True, tp_rank=tp_rank,
+                               tp=tp)
+    return cfg, shard_tree(params, llama_inference_specs(params), 0, 1,
+                           pp_rank, pp, lambda x, _n: x.to(device)), {}
 
 
 def _rank_device(device: str, rank: int):
@@ -2574,21 +2578,42 @@ def _rank_device(device: str, rank: int):
     return dev
 
 
+def _dense_config(name: str):
+    """The dense config ``name`` (``"tiny"`` or a checkpoint directory)
+    names, read without its weights; None for the MoE family."""
+    import types
+
+    from .models import TINY
+
+    if name == "tiny":
+        return TINY
+    if _is_moe_dir(name) or not os.path.isfile(
+            os.path.join(name, "config.json")):
+        return None
+    from .models import hf
+
+    with open(os.path.join(name, "config.json")) as f:
+        return hf.config_from_hf(types.SimpleNamespace(**json.load(f)))
+
+
 def tp_engine(spec: Dict[str, Any], rank: int, conn=None):
-    """Rank ``rank``'s engine of the tensor-parallel group ``spec``
-    describes (``serve --tp``): joins the group, builds the mesh, loads the
-    rank's shard of the model and builds its engine, every rank with the
-    same arguments.  ``conn`` (the store) on rank 0 only."""
+    """Rank ``rank``'s engine of the serving group ``spec`` describes
+    (``serve --tp/--pp``): joins the group, builds the ``(pp, tp)`` mesh,
+    loads the rank's shard of the model (its stage's layers, its heads)
+    and builds its engine, every rank with the same arguments.  ``conn``
+    (the store) on rank 0 only."""
     from .engine import InferenceEngine
     from .kv import PagedCacheConfig
-    from .parallel import initialize, make_mesh
+    from .parallel import MeshShape, initialize, make_mesh
 
     device = _rank_device(spec["device"], rank)
-    initialize(init_method=spec["init_method"], world_size=spec["tp"],
+    tp, pp = spec["tp"], spec.get("pp", 1)
+    initialize(init_method=spec["init_method"], world_size=tp * pp,
                rank=rank, backend=spec["backend"])
-    mesh = make_mesh(tp=spec["tp"])
+    mesh = make_mesh(MeshShape(pp=pp, tp=tp))
     cfg, params, _ = load_model(spec["model"], device, seed=spec["seed"],
-                                tp_rank=rank, tp=spec["tp"])
+                                tp_rank=mesh.get_local_rank("tp"), tp=tp,
+                                pp_rank=mesh.get_local_rank("pp"), pp=pp)
     pc = PagedCacheConfig(
         n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, n_blocks=spec["n_blocks"],
@@ -2599,20 +2624,22 @@ def tp_engine(spec: Dict[str, Any], rank: int, conn=None):
 
 
 def tp_follower(spec: Dict[str, Any], rank: int) -> None:
-    """A ``serve --tp`` follower process: its engine follows rank 0's ops
-    until rank 0 shuts the group down (or dies, which makes it raise)."""
+    """A ``serve --tp/--pp`` follower process: its engine follows rank
+    0's ops until rank 0 shuts the group down (or dies, which makes it
+    raise)."""
     tp_engine(spec, rank).follow()
 
 
 def spawn_followers(spec: Dict[str, Any]) -> list:
-    """Start ranks 1..tp-1 of ``spec`` (``torch.multiprocessing``, start
-    method ``spawn``), each running ``tp_follower``."""
+    """Start ranks 1.. of ``spec``'s ``tp x pp`` group
+    (``torch.multiprocessing``, start method ``spawn``), each running
+    ``tp_follower``."""
     import torch.multiprocessing as tmp
 
     ctx = tmp.get_context("spawn")
     procs = [ctx.Process(target=tp_follower, args=(spec, r), daemon=True,
                          name=f"istpu-tp-rank{r}")
-             for r in range(1, spec["tp"])]
+             for r in range(1, spec["tp"] * spec.get("pp", 1))]
     for p in procs:
         p.start()
     return procs
@@ -2709,12 +2736,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "others")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
                     default="nccl",
-                    help="the --tp ranks' collectives: nccl (one card per "
-                         "rank, CUDA graphs capture the collectives) or "
+                    help="the --tp/--pp ranks' collectives: nccl (one card "
+                         "per rank, CUDA graphs capture the collectives) or "
                          "gloo (on the host: ranks may share a card, or run "
                          "on the CPU; graph bodies run eagerly)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="layer-sharding degree: only 1 is ported")
+                    help="layer-sharding degree: each of this many stages "
+                         "holds n_layers/pp of the layers (and their paged "
+                         "cache) and hands its hidden state to the next; "
+                         "with --tp the group has tp x pp ranks")
     ap.add_argument("--store-host", default=None,
                     help="attach an InfiniStore KV store at this host "
                          "(requires --store-service-port)")
@@ -2766,30 +2796,33 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
     Logger.set_log_level(args.log_level)
 
-    if args.pp != 1:
-        raise SystemExit("--pp (layer-sharded weight streaming) is not "
-                         "ported yet (ROADMAP.md queue 1 item 5a)")
-    if args.tp < 1:
-        raise SystemExit("--tp must be >= 1")
-    if args.tp > 1:
+    if args.tp < 1 or args.pp < 1:
+        raise SystemExit("--tp and --pp must be >= 1")
+    world = args.tp * args.pp
+    if world > 1:
         # reject BEFORE building anything: mesh serving covers the
-        # built-in dense families, without speculation
-        if _is_moe_dir(args.model):
-            raise SystemExit("--tp mesh serving supports the built-in "
+        # built-in dense families, whose layers and KV heads divide
+        cfg0 = _dense_config(args.model)
+        if cfg0 is None:
+            raise SystemExit("--tp/--pp mesh serving supports the built-in "
                              "dense families")
-        if args.draft_model is not None or args.ngram_spec:
-            raise SystemExit("speculation under --tp is not ported yet "
-                             "(ROADMAP.md queue 1 item 5b)")
+        if cfg0.n_layers % args.pp:
+            raise SystemExit(f"n_layers={cfg0.n_layers} must divide over "
+                             f"--pp {args.pp}")
+        if cfg0.n_kv_heads % args.tp:
+            raise SystemExit(f"n_kv_heads={cfg0.n_kv_heads} must divide "
+                             f"over --tp {args.tp}")
         if args.device.startswith("cuda"):
             import torch
 
             if not torch.cuda.is_available():
                 raise SystemExit("--device cuda but no CUDA device")
             cards = torch.cuda.device_count()
-            if args.dist_backend == "nccl" and args.tp > cards:
+            if args.dist_backend == "nccl" and world > cards:
                 raise SystemExit(
-                    f"--tp {args.tp} over nccl needs a card per rank, have "
-                    f"{cards} (--dist-backend gloo lets ranks share one)")
+                    f"--tp {args.tp} x --pp {args.pp} over nccl needs a card "
+                    f"per rank, have {cards} (--dist-backend gloo lets ranks "
+                    f"share one)")
         elif args.dist_backend == "nccl":
             raise SystemExit("--dist-backend nccl runs on CUDA devices; "
                              "--device cpu takes --dist-backend gloo")
@@ -2819,7 +2852,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     device = resolve_device(args.device)
     followers: list = []
     tp_spec = None
-    if args.tp > 1:
+    if world > 1:
         import tempfile
 
         if device.type == "cuda":
@@ -2829,7 +2862,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             build.build_all()
         rdv = tempfile.mkdtemp(prefix="istpu-tp-")
         tp_spec = {
-            "tp": args.tp, "backend": args.dist_backend,
+            "tp": args.tp, "pp": args.pp, "backend": args.dist_backend,
             "init_method": "file://" + os.path.join(rdv, "store"),
             "device": args.device, "model": args.model, "seed": 0,
             "n_blocks": args.n_blocks, "block_tokens": args.block_tokens,
@@ -2891,7 +2924,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         conn.connect()
     if tp_spec is not None:
         engine = tp_engine(tp_spec, 0, conn=conn)
-        cfg = engine.cfg
+        # rank 0's card (cuda:0): the draft of --draft-model lives there
+        cfg, device = engine.cfg, engine.device
     else:
         pc = PagedCacheConfig(
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
@@ -2956,8 +2990,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         except KeyboardInterrupt:
             srv.close()
         return
-    # rank 0 of a tensor-parallel group: SIGTERM (or ^C) shuts the
-    # followers down; a follower that dies ends the server non-zero
+    # rank 0 of a serving group: SIGTERM (or ^C) shuts the followers
+    # down; a follower that dies ends the server non-zero
     import signal
 
     stop = threading.Event()
@@ -2981,7 +3015,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         shutil.rmtree(rdv, ignore_errors=True)  # the rendezvous file
     if dead:
-        raise SystemExit(f"tensor-parallel rank(s) {dead} died")
+        raise SystemExit(f"serving-group rank(s) {dead} died")
 
 
 if __name__ == "__main__":

@@ -501,6 +501,22 @@ def test_cluster_report_shape(fleet):
 
 # ---- the handoff across frameworks over a ring, both directions ----
 
+def _spanning_prompt(pool, model_id):
+    """A 21-token prompt (5 complete chunks + a 1-token tail) whose chunks
+    the ring ``pool`` spreads over at least two nodes, whatever ports the
+    fleet's nodes took: the first of seeded candidates that does (one
+    lands on a single node about 1 time in 80)."""
+    rng = np.random.RandomState(531)
+    cand = [23, 5, 77, 190, 3, 44, 8, 61, 12, 9, 100, 31, 2, 70, 18, 6,
+            55, 4, 39, 27, 13]
+    for _ in range(64):
+        keys = chunk_keys(cand, model_id, chunk_tokens=T)
+        if len(pool.partition(keys)) >= 2:
+            return cand
+        cand = [int(t) for t in rng.randint(1, TCFG.vocab_size, 21)]
+    raise AssertionError("64 seeded prompts each landed on one node")
+
+
 @pytest.mark.parametrize("quant", [None, "int8"])
 @pytest.mark.parametrize("producer", ["jax", "torch"])
 def test_handoff_across_frameworks_over_a_ring(fleet, producer, quant):
@@ -510,10 +526,9 @@ def test_handoff_across_frameworks_over_a_ring(fleet, producer, quant):
     Lossless pages land byte-exact; int8 pages are the same packed bytes
     as the consumer's own quantizer makes of the producer's pages."""
     model_id = f"ring-handoff-{producer}-{quant}"
-    prompt = [23, 5, 77, 190, 3, 44, 8, 61, 12, 9, 100, 31, 2, 70, 18, 6,
-              55, 4, 39, 27, 13]  # 5 complete chunks + a 1-token tail
     jpool = ref_cluster.RoutedStorePool(fleet.endpoints, op_timeout_s=5.0)
     tpool = _pool(fleet)
+    prompt = _spanning_prompt(tpool, model_id)
     try:
         je = JEngine(PARAMS, CFG, JPC(
             n_layers=CFG.n_layers, n_kv_heads=CFG.n_kv_heads,

@@ -1,6 +1,7 @@
 """Tensor-parallel serving end to end on the CPU: the store hop under tp
-(whole pages, byte-compatible with JAX), ranks that agree, the paths that
-raise, a follower that dies, and ``serve --tp 2`` over HTTP.
+(whole pages, byte-compatible with JAX), ranks that agree, every route on
+tp, pp and pp x tp groups, a follower that dies, the CLI's refusals and
+``serve --tp 2`` over HTTP.
 
 Each engine group is a spawned gloo world (``tp_world.py``); the JAX side
 runs in this process.  TINY in float32 where tokens must be equal; the
@@ -46,6 +47,8 @@ CFG = scaled(TINY, dtype=jnp.float32)
 TCFG = tscaled(TTINY, dtype=torch.float32)
 PARAMS = init_params(CFG, jax.random.PRNGKey(7))
 TREE = jax.tree.map(np.asarray, PARAMS)
+# the speculators' draft: TINY with other weights
+DRAFT_TREE = jax.tree.map(np.asarray, init_params(CFG, jax.random.PRNGKey(8)))
 T = 4
 PROMPT = [11, 42, 7, 99, 5, 3, 17, 28, 64, 1, 2, 90, 13, 8, 21, 34, 55, 3,
           77, 6, 15, 19, 24]  # 5 full chunks + a 3-token tail
@@ -204,43 +207,58 @@ def test_ranks_sample_the_same_tokens(tmp_path):
     assert out["seeded"][0] != dense_greedy(PROMPT, 8)
 
 
-def test_every_route_runs_through_the_mirror_or_raises(tmp_path):
-    """Every engine method that launches model compute, under tp=2: the
-    routes (prefill, decode, the batched group prefill, prompt logprobs,
-    adopt, abandon) give a tp=1 engine's answers; ``verify``, ``propose``
-    and both speculators raise ``NotImplementedError`` naming their
-    ROADMAP item, and so does a LoRA bank at construction."""
-    _, tpc = _pcs()
-    ref = InferenceEngine(params_from_jax(TREE, TCFG, "cpu"), TCFG, tpc,
-                          kv_quant=None, device="cpu")
-    src = ref.prefill(PROMPT[:7])
-    kv = ref.cache[:, :, :, torch.tensor(src.block_ids)]  # [L,2,H,n,T,D]
+@pytest.mark.parametrize("mesh_kw", [{"tp": 2}, {"pp": 2},
+                                     {"pp": 2, "tp": 2}],
+                         ids=["tp2", "pp2", "pp2xtp2"])
+def test_every_route_runs_through_the_mirror_or_raises(tmp_path, mesh_kw):
+    """Every engine method that launches model compute, on a serving group
+    of a tp=2, a pp=2 and a pp=2 x tp=2 mesh with a LoRA bank attached:
+    prefill, decode, the batched group prefill, prompt logprobs, adopt,
+    abandon, ``verify``, ``propose``, both speculators (the draft an
+    unsharded engine beside the group, on its leader) and an adapter's
+    decode give a tp=1 engine's answers (tokens equal, logits and
+    probabilities within 1e-5)."""
+    _, tpc = _pcs(96)
     from infinistore_tpu_torch.kv import pages_to_seq_kv
-
-    adopt_kv = pages_to_seq_kv(kv).numpy()
-    adopt_logits = src.last_logits.numpy()
-    out = _world(tmp_path, tp_targets.every_route, prompt=PROMPT,
-                 n_steps=5, adopt_kv=adopt_kv, adopt_logits=adopt_logits)
-    want = InferenceEngine(params_from_jax(TREE, TCFG, "cpu"), TCFG, tpc,
-                           kv_quant=None, device="cpu")
-    assert out["decode"] == want.decode(want.prefill(PROMPT), 5)
-    states = want.prefill_batch([PROMPT[:9], PROMPT[1:10], PROMPT[:4]])
-    assert out["batch"] == want.decode_batch(states, 5)
-    lp = want.prompt_logprobs(PROMPT[:9], k=2)
-    assert [[t for t, _ in r[1]] for r in out["prompt_logprobs"]] == \
-        [[t for t, _ in r[1]] for r in lp]
-    np.testing.assert_allclose([r[0] for r in out["prompt_logprobs"]],
-                               [r[0] for r in lp], atol=1e-5)
-    assert out["adopted"] == ref.decode(src, 5)
-    for name in ("verify", "propose", "draft", "ngram"):
-        assert "ROADMAP.md queue 1 item 5b" in out["raised"][name], name
     from infinistore_tpu_torch.models.lora import init_lora_bank
 
-    bank = init_lora_bank(TCFG, ["a"], 4, torch.Generator().manual_seed(0),
-                          "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        InferenceEngine(params_from_jax(TREE, TCFG, "cpu"), TCFG, tpc,
-                        lora=bank, mesh=object(), device="cpu")
+    bank = init_lora_bank(TCFG, ["a", "b"], 4,
+                          torch.Generator().manual_seed(0), "cpu",
+                          init_scale=0.5)
+    src_eng = InferenceEngine(params_from_jax(TREE, TCFG, "cpu"), TCFG, tpc,
+                              kv_quant=None, device="cpu")
+    src = src_eng.prefill(PROMPT[:7])
+    kv = src_eng.cache[:, :, :, torch.tensor(src.block_ids)]
+    adopt_kv = pages_to_seq_kv(kv).numpy()
+    adopt_logits = src.last_logits.numpy()
+    kw = dict(prompt=PROMPT, n_steps=5, adopt_kv=adopt_kv,
+              adopt_logits=adopt_logits, draft_tree=DRAFT_TREE, cfg=TCFG,
+              pc=tpc)
+    world = mesh_kw.get("tp", 1) * mesh_kw.get("pp", 1)
+    got = run_world(tp_targets.engine_world, world, tmp_path, TREE, TCFG,
+                    tpc, tp_targets.every_route,
+                    {"kv_quant": None, "lora": bank}, mesh_kw=mesh_kw,
+                    script_kw=kw)[0]
+    ref = InferenceEngine(params_from_jax(TREE, TCFG, "cpu"), TCFG, tpc,
+                          kv_quant=None, device="cpu", lora=bank)
+    want = tp_targets.every_route(ref, **kw)
+    for name in ("decode", "batch", "adopted", "draft", "ngram", "adapter"):
+        assert got[name] == want[name], name
+    assert got["propose"][0] == want["propose"][0]
+    np.testing.assert_allclose(got["propose"][1], want["propose"][1],
+                               atol=1e-5)
+    np.testing.assert_allclose(got["verify"], want["verify"], atol=1e-5)
+    lp, wlp = got["prompt_logprobs"], want["prompt_logprobs"]
+    assert [[t for t, _ in r[1]] for r in lp] == \
+        [[t for t, _ in r[1]] for r in wlp]
+    np.testing.assert_allclose([r[0] for r in lp], [r[0] for r in wlp],
+                               atol=1e-5)
+    # the plain routes are the dense reference's
+    assert want["decode"] == dense_greedy(PROMPT, 5)
+    assert want["adopted"] == src_eng.decode(src, 5)
+    ranks = got["reports"]
+    assert len(ranks) == world
+    assert all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
 
 
 def test_a_gloo_group_refuses_to_capture(tmp_path):
@@ -262,10 +280,17 @@ def test_a_dead_follower_fails_the_next_step_fast(tmp_path):
     assert out[0]["seconds"] < 30
 
 
-def test_serve_refuses_pp_and_nccl_without_cards():
-    """``serve --pp 2`` exits naming its ROADMAP item; ``--tp 2`` over
-    nccl on the CPU exits naming gloo."""
-    for argv, msg in ((["--pp", "2"], "queue 1 item 5a"),
+def test_serve_refuses_pp_and_nccl_without_cards(tmp_path):
+    """``serve --pp 3`` exits naming TINY's layer count (2 layers do not
+    split in 3 stages); ``--pp 2`` with an MoE checkpoint exits naming the
+    dense families; ``--tp 2`` over nccl on the CPU exits naming gloo."""
+    moe = tmp_path / "moe"
+    moe.mkdir()
+    (moe / "config.json").write_text(json.dumps({"model_type": "mixtral"}))
+    for argv, msg in ((["--pp", "3", "--device", "cpu"],
+                       "n_layers=2 must divide over --pp 3"),
+                      (["--pp", "2", "--device", "cpu", "--dist-backend",
+                        "gloo", "--model", str(moe)], "dense families"),
                       (["--tp", "2", "--device", "cpu"], "gloo")):
         r = subprocess.run(
             [sys.executable, "-m", "infinistore_tpu_torch.serve", *argv],

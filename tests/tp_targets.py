@@ -78,6 +78,52 @@ def composition_shard(rank, world, kind, arrays, kw):
     return _np(out)
 
 
+# ---- sequence parallelism ----
+
+def ring_shard(rank, world, q, k, v):
+    """``make_ring_attention`` over an sp=``world`` mesh (the whole output
+    on every rank), and this rank's ``ring_attention_local`` on its own
+    chunk: (whole output, this rank's chunk) as numpy."""
+    from infinistore_tpu_torch.parallel import (make_ring_attention,
+                                                ring_attention_local)
+
+    mesh = _mesh(world, {"sp": world})
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    whole = make_ring_attention(mesh, "sp")(q, k, v)
+    w = q.shape[1] // world
+    sl = slice(rank * w, (rank + 1) * w)
+    mine = ring_attention_local(q[:, sl].contiguous(), k[:, sl].contiguous(),
+                                v[:, sl].contiguous(), mesh.get_group("sp"))
+    return _np(whole), _np(mine)
+
+
+def sp_prefill(rank, world, tree, cfg, tokens, mesh_kw, pc=None,
+               n_steps=0):
+    """``make_sp_prefill`` on this rank's tp shard of the reference's
+    weights: (logits, KV) as numpy, whole on every rank; with ``pc``, rank
+    0 then adopts the KV into a plain engine (``adopt_prefill``) and
+    decodes ``n_steps`` greedy tokens, releasing the state after."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import params_from_jax
+    from infinistore_tpu_torch.parallel import make_sp_prefill
+
+    mesh = _mesh(world, mesh_kw)
+    params = params_from_jax(tree, cfg, "cpu",
+                             tp_rank=mesh.get_local_rank("tp"),
+                             tp=mesh["tp"].size())
+    toks = torch.from_numpy(np.asarray(tokens, np.int32))
+    logits, kv = make_sp_prefill(cfg, mesh)(params, toks)
+    out = {"logits": _np(logits), "kv": _np(kv)}
+    if pc is not None and rank == 0:
+        eng = InferenceEngine(params_from_jax(tree, cfg, "cpu"), cfg, pc,
+                              kv_quant=None, device="cpu")
+        st = eng.adopt_prefill(list(tokens[0]), kv, logits[0, -1])
+        out["tokens"] = eng.decode(st, n_steps)
+        eng.release(st)
+        out["free_pages"] = eng.free_pages
+    return out
+
+
 # ---- engines ----
 
 _SPY = {"flash_causal_attention_tp": 0, "paged_decode_attention_tp": 0}
@@ -99,12 +145,13 @@ def _install_spies() -> None:
 def engine_world(rank, world, tree, cfg, pc, script, engine_kw=None,
                  mesh_kw=None, store=None, spy=False, script_kw=None,
                  device="cpu"):
-    """Build this rank's engine of a tensor-parallel group over the
-    reference's weights (``tree``, numpy; each rank shards the whole
-    model); the group's leader runs ``script(engine, **script_kw)`` and
-    returns its result with every rank's report, the others follow.
-    ``store``: (port, transport, model_id) of a store server the leader
-    connects to."""
+    """Build this rank's engine of a serving group (``mesh_kw``: tp, pp or
+    both) over the reference's weights (``tree``, numpy; each rank shards
+    the whole model, or, with ``shard_params``, converts only its shard);
+    the group's leader runs ``script(engine, **script_kw)`` and returns
+    its result with every rank's report, the others follow.  ``store``:
+    (port, transport, model_id) of a store server the leader connects
+    to."""
     import os
 
     from infinistore_tpu_torch.engine import InferenceEngine
@@ -115,15 +162,24 @@ def engine_world(rank, world, tree, cfg, pc, script, engine_kw=None,
     mesh = _mesh(world, mesh_kw)
     conn = None
     kw = dict(engine_kw or {})
-    tp_rank = mesh.get_local_rank("tp")
-    if store is not None and tp_rank == 0:
+    leader = (mesh.get_local_rank("tp") == 0
+              and mesh.get_local_rank("pp") == 0)
+    if store is not None and leader:
         conn = connect(*store[:2])
         kw["model_id"] = store[2]
         kw.setdefault("store_durability", "strict")
-    params = params_from_jax(tree, cfg, device)
+    shard = dict(tp_rank=mesh.get_local_rank("tp"), tp=mesh["tp"].size(),
+                 pp_rank=mesh.get_local_rank("pp"), pp=mesh["pp"].size())
+    if "lora_shard" in kw:  # a reference bank's numpy stacks
+        from infinistore_tpu_torch.models import bank_from_jax
+
+        kw["lora"] = bank_from_jax(kw.pop("lora_shard"), cfg, device,
+                                   **shard)
+    params = params_from_jax(tree, cfg, device, **(
+        shard if kw.pop("shard_params", False) else {}))
     eng = InferenceEngine(params, cfg, pc, conn=conn, mesh=mesh,
                           device=device, **kw)
-    if tp_rank != 0:
+    if not leader:
         eng.follow()
         return {"follower": eng.rank_report(), "spy": dict(_SPY),
                 "pid": os.getpid()}
@@ -192,9 +248,19 @@ def sampled(eng, prompt, n_steps):
     return out
 
 
-def every_route(eng, prompt, n_steps, adopt_kv, adopt_logits):
-    """The engine methods that launch model compute, each run through the
-    leader's ops, beside the ones that raise under tensor parallelism."""
+def every_route(eng, prompt, n_steps, adopt_kv, adopt_logits, draft_tree,
+                cfg, pc):
+    """Every engine method that launches model compute, each run through
+    the leader's ops: prefill, decode, the batched group prefill, prompt
+    logprobs, adopt, abandon, ``verify``, ``propose``, both speculators
+    (the draft an unsharded engine over ``draft_tree`` beside the group)
+    and, when the engine carries a LoRA bank, an adapter's decode.  Runs
+    on a plain engine too (the tests' tp=1 yardstick)."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.engine.ngram import NgramSpeculator
+    from infinistore_tpu_torch.engine.speculative import SpeculativeDecoder
+    from infinistore_tpu_torch.models import params_from_jax
+
     out = {}
     st = eng.prefill(prompt)
     out["decode"] = eng.decode(st, n_steps)
@@ -206,23 +272,138 @@ def every_route(eng, prompt, n_steps, adopt_kv, adopt_logits):
     out["adopted"] = eng.decode(ad, n_steps)
     pp = eng.prefill_start(prompt)
     eng.abandon_prefill(pp)
+    sv = eng.prefill(prompt[:10])
+    out["verify"] = _np(eng.verify(sv, [1, 2, 3], len(sv.tokens)))
+    sp = eng.prefill(prompt[2:12])
+    toks, q = eng.propose(sp, 3, temperature=0.9, top_k=20)
+    out["propose"] = (toks, _np(q))
+    draft = InferenceEngine(params_from_jax(draft_tree, cfg, eng.device),
+                            cfg, pc, kv_quant=None, device=eng.device)
+    out["draft"] = SpeculativeDecoder(eng, draft, 2).generate(prompt,
+                                                              n_steps)
+    out["ngram"] = NgramSpeculator(eng, 2).generate(prompt[3:], n_steps)
+    if eng.lora is not None:
+        sa = eng.prefill(prompt[1:], adapter_id=1)
+        out["adapter"] = eng.decode(sa, n_steps)
+    return out
+
+
+def verify_logits(eng, prompt, run):
+    """``verify``'s logits of ``run`` after ``prompt``, whole rows, then
+    the last-row form of the same run (its KV rewritten in place)."""
+    st = eng.prefill(prompt)
+    full = _np(eng.verify(st, run, len(st.tokens)))
+    return {"full": full, "last": _np(eng.verify(st, run, len(st.tokens),
+                                                 last_only=True))}
+
+
+def _draft_engine(eng, draft_tree, draft_cfg, pc):
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.kv import PagedCacheConfig
+    from infinistore_tpu_torch.models import params_from_jax
+
+    dpc = PagedCacheConfig(n_layers=draft_cfg.n_layers,
+                           n_kv_heads=draft_cfg.n_kv_heads,
+                           head_dim=draft_cfg.head_dim, n_blocks=pc.n_blocks,
+                           block_tokens=pc.block_tokens,
+                           dtype=draft_cfg.dtype)
+    return InferenceEngine(params_from_jax(draft_tree, draft_cfg,
+                                           eng.device), draft_cfg, dpc,
+                           kv_quant=None, device=eng.device)
+
+
+def speculate(eng, prompts, n_steps, draft_tree, draft_cfg, pc, k=4):
+    """Greedy speculation on the round bodies: the draft-model decoder
+    (one row, then a lockstep batch of the rows) and n-gram (the same);
+    the draft is an unsharded engine beside the group, on its leader."""
     from infinistore_tpu_torch.engine.ngram import NgramSpeculator
     from infinistore_tpu_torch.engine.speculative import SpeculativeDecoder
 
-    raised = {}
-    for name, call in (
-        ("verify", lambda: eng.verify(st, [1, 2], len(st.tokens))),
-        ("propose", lambda: eng.propose(st, 2)),
-        ("draft", lambda: SpeculativeDecoder(eng, eng, 2)),
-        ("ngram", lambda: NgramSpeculator(eng, 2)),
-    ):
-        try:
-            call()
-            raised[name] = None
-        except NotImplementedError as e:
-            raised[name] = str(e)
-    out["raised"] = raised
-    # nothing left on a follower after the abandon
+    draft = _draft_engine(eng, draft_tree, draft_cfg, pc)
+    spec = SpeculativeDecoder(eng, draft, k)
+    out = {"draft": spec.generate(prompts[0], n_steps)}
+    pairs = [spec.prefill(p) for p in prompts]
+    out["draft_batch"] = spec.decode_batch([a for a, _ in pairs],
+                                           [b for _, b in pairs], n_steps)
+    out["draft_rounds"] = spec.rounds
+    ng = NgramSpeculator(eng, k, 2)
+    out["ngram"] = ng.generate(prompts[0], n_steps)
+    states = [ng.prefill(p) for p in prompts]
+    out["ngram_batch"] = ng.decode_batch(states, n_steps)
+    out["ngram_rounds"] = ng.rounds
+    # the target comes back decode-ready: plain steps after the rounds
+    out["after"] = eng.decode(states[0], 3)
+    return out
+
+
+def scheduler_spec(eng, prompts, n_steps, kind, draft_tree=None,
+                   draft_cfg=None, pc=None):
+    """The scheduler's speculative fast path (``kind`` "draft" or
+    "ngram"), one request in flight at a time, then the rows together."""
+    from infinistore_tpu_torch.engine import Scheduler
+    from infinistore_tpu_torch.utils.metrics import MetricsRegistry
+
+    kw = ({"ngram_spec": True} if kind == "ngram" else
+          {"draft_engine": _draft_engine(eng, draft_tree, draft_cfg, pc)})
+    sched = Scheduler(eng, max_batch=4, spec_k=4,
+                      metrics=MetricsRegistry(), **kw)
+    out = {"alone": []}
+    for p in prompts:
+        rid = sched.submit(p, max_new_tokens=n_steps)
+        out["alone"].append(sched.run()[rid])
+    rids = [sched.submit(p, max_new_tokens=n_steps) for p in prompts]
+    got = sched.run()
+    out["together"] = [got[r] for r in rids]
+    out["rounds"] = sched.spec.rounds
+    return out
+
+
+def lora_batch(eng, prompts, aids, n_steps):
+    """One lockstep decode batch over rows on the adapters ``aids``, and
+    each row alone."""
+    states = [eng.prefill(p, adapter_id=a) for p, a in zip(prompts, aids)]
+    out = {"batch": eng.decode_batch(states, n_steps)}
+    out["alone"] = [eng.decode(eng.prefill(p, adapter_id=a), n_steps)
+                    for p, a in zip(prompts, aids)]
+    return out
+
+
+def lora_http(eng, prompt, n_steps, names):
+    """A ``ServingServer`` over the group's leader engine: one greedy
+    completion per adapter name (``"model"``), and ``/v1/models``."""
+    import http.client
+    import json
+
+    from infinistore_tpu_torch.serve import ServingServer
+
+    srv = ServingServer(eng, port=0, max_batch=4, model_id=names[0])
+    srv.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        conn.request("GET", "/v1/models")
+        out = {"models": [c["id"] for c in json.loads(
+            conn.getresponse().read())["data"]], "tokens": []}
+        for name in names:
+            conn.request("POST", "/v1/completions", json.dumps({
+                "prompt": prompt, "max_tokens": n_steps, "temperature": 0,
+                "model": name}), {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            body = json.loads(r.read())
+            out["tokens"].append((r.status, body["choices"][0]["token_ids"]
+                                  if r.status == 200 else body))
+        conn.close()
+    finally:
+        srv.close()
+    return out
+
+
+def held(eng, prompt, n_steps):
+    """Greedy tokens of ``prompt`` and a lockstep batch (every rank's
+    layer count, ``wq`` bytes and cache bytes come in its report)."""
+    st = eng.prefill(prompt)
+    out = {"tokens": eng.decode(st, n_steps)}
+    sa, sb = eng.prefill(prompt), eng.prefill(prompt[:5])
+    out["batch"] = eng.decode_batch([sa, sb], n_steps)
     return out
 
 
