@@ -168,11 +168,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    two cards), and ``serve --model tiny --tp 2 --dist-backend gloo`` as a
    subprocess (3 completions, both ranks' K1/K2/K3, nothing left after
    SIGTERM);
+7e. train path (after the fleet path, on the Llama-3-8B weights, then
+   after the moe path): the 8B engine generates the distillation corpus
+   (``engine.distill.generate_corpus``: 32 sequences of 16 random prompt
+   and 48 greedy tokens at B=8; K3 and K1 launched); ``distill`` trains a
+   draft of Llama-3.2-1B's widths (its own seed) on it, 100 float32 steps
+   at batch 16 (the loss must fall; losses, ms per step and the peak
+   allocator memory printed); ``acceptance_probe`` at k=4 on 4 held-out
+   prompts, 48 tokens each, for the random-init and the distilled draft
+   (and the distilled one on 4 of the corpus's prompts);
+   the distilled bf16 params through ``utils.checkpoint.CheckpointManager``
+   (async save, restore with ``like`` onto the card, bitwise equal; save
+   and restore seconds); an engine on the port's native shm store holding
+   two live sequences (700 and 300 tokens) saves its state, a fresh engine
+   resumes it (``reused_chunks > 0``, K2 launched on the tails) and its 16
+   greedy tokens hold against the uninterrupted engine's by the rank rule;
+   K1/K2/K3 called with an input that requires grad raise; then three
+   ``train_step_fn`` steps on one B=1, 512-token batch at full width (every
+   leaf's gradient present, finite and nonzero; the loss falls; no kernel
+   launched: the training forward takes the plain attention), and after
+   the moe path three ``moe_train_step_fn`` steps at Mixtral-8x7B's widths
+   and ``MOE_TRAIN_LAYERS`` (12) of its 32 layers, the same checks;
 8. the ``kernels`` line: one JSON object with every kernel's numbers, each
    kernel's launches counted over the path that runs it, and its launches
    on the speculation path's timed runs (``spec_launches``), the lora path
    (``lora_launches``), the cluster path (``cluster_launches``), the moe
-   path (``moe_launches``) and the multi-device paths, each summed over
+   path (``moe_launches``), the train path (``train_launches``: the
+   corpus, the acceptance probes and the resume) and the multi-device paths, each summed over
    its ranks (``tp_launches``, ``spec_tp_launches``, ``lora_tp_launches``,
    ``pp_launches``, ``sp_launches``: the sp path's are the adopted
    decode's, ring attention being plain PyTorch); and the two
@@ -194,6 +216,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -2918,6 +2941,403 @@ def phase_moe(torch, ca, dev, card: str) -> dict:
     return launches
 
 
+# ---- the train phase: distillation, checkpoints, engine resume, train steps ----
+
+CORPUS_SEQS = 32  # the draft's corpus: sequences of 16 prompt and 48 greedy
+CORPUS_PROMPT, CORPUS_GEN, CORPUS_BATCH = 16, 48, 8  # tokens, at B=8
+DISTILL_STEPS, DISTILL_BATCH = 100, 16
+DISTILL_LR = 3e-3  # the reference's ``distill`` default
+PROBE_PROMPTS, PROBE_GEN, PROBE_K = 4, 48, 4
+TRAIN_TOKENS = 512  # one B=1 batch for the full-width train steps
+TRAIN_LR = 1e-2  # plain SGD on bf16 weights: large enough not to underflow
+TRAIN_STEPS = 3
+RESUME_LENGTHS = (700, 300)  # the resumed engine's two live sequences
+RESUME_NEW = 16
+# of Mixtral-8x7B's 32 layers: each holds 2.9 GB of bf16 weights and as
+# much again in gradients (5.5 GiB a layer with its activations at 512
+# tokens); at 13 the step ran out of the card's 79.18 GiB after the
+# earlier phases (72.90 GiB allocated, 4.66 GiB cached)
+MOE_TRAIN_LAYERS = 12
+
+
+def _launch_delta(ca, before: dict) -> dict:
+    return {k: ca.LAUNCHES[k] - before[k] for k in ca.KERNELS}
+
+
+def _kernel_counts(d: dict) -> str:
+    return (f"K1 {d['paged_decode']}, K3 {d['flash_causal']}, K2 "
+            f"{d['flash_prefix']}")
+
+
+def _grads_checked(torch, loss, params, tokens, what: str) -> float:
+    """One backward of ``loss(params, tokens)`` over every leaf (each
+    layer's slice of a stacked tensor its own, as ``train_step_fn`` takes
+    them: ``models.llama.trainable``): fails unless each leaf's gradient
+    exists, is finite and is not all zero.  Returns the loss."""
+    from infinistore_tpu_torch.models.llama import trainable
+
+    tree, pairs = trainable(params)
+    with torch.enable_grad():
+        value = loss(tree, tokens)
+        grads = torch.autograd.grad(value, [a for _, a in pairs],
+                                    allow_unused=True)
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not bool(torch.isfinite(g).all())
+           or not bool(g.abs().max() > 0)]
+    del tree, pairs, grads
+    print(f"{what}: {len(bad) or 'every'} leaf gradient"
+          f"{'s' if not bad else ''} {'missing, non-finite or zero' if bad
+          else 'present, finite and nonzero'} (each layer's slice a leaf)")
+    check(not bad, f"{what}: leaves {bad} have no usable gradient")
+    return float(value)
+
+
+def _train_steps(torch, step, params, tokens, what: str, card: str) -> None:
+    """``TRAIN_STEPS`` steps of ``step`` on one batch: the loss must fall
+    and no attention kernel may launch (the training forward runs the
+    plain attention, ``use_kernels=False``); then one more step under
+    ``torch.profiler``, its device time by kind printed."""
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    before = dict(ca.LAUNCHES)
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, tokens)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    kern = _launch_delta(ca, before)
+    # one more step under the profiler: where a step's device time goes
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(params, tokens)
+        torch.cuda.synchronize()
+    groups, top, n_kernels = _device_time_by_kind(torch, prof)
+    top.sort(reverse=True)
+    print(f"{what}: a profiled fourth step, device "
+          f"{sum(groups.values()):.3f} ms in {n_kernels} kernels, ms by kind "
+          f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}; "
+          f"top {[(round(ms, 3), n, name) for ms, n, name in top[:4]]}")
+    print(f"{what}: losses {[round(x, 5) for x in losses]}, ms per step "
+          f"{[round(x, 3) for x in ms]}, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+          f" GiB), kernel "
+          f"launches {_kernel_counts(kern)} ({card})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{what}: the loss did not fall: {losses}")
+    check(not any(kern.values()), f"{what}: a kernel launched in training")
+
+
+def _refuses_grad(torch, ca, dev) -> None:
+    """K1, K2 and K3 called on the card with an input that requires grad
+    raise (no kernel has a backward); under ``no_grad`` the same calls
+    launch."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v = r(1, 128, 32, 128), r(1, 128, 8, 128), r(1, 128, 8, 128)
+    kp, vp = r(1, 256, 8, 128), r(1, 256, 8, 128)
+    q1, cache = r(2, 32, 128), r(2, 8, 8, 16, 128)
+    table = torch.arange(8, device=dev, dtype=torch.int32).reshape(2, 4)
+    lens = torch.tensor([64, 30], device=dev, dtype=torch.int32)
+    calls = {"K3": (ca.flash_causal_attention_cuda, (q, k, v)),
+             "K2": (ca.flash_prefix_attention_cuda, (q, kp, vp, 128, 100)),
+             "K1": (ca.paged_decode_attention_cuda, (q1, cache, table, lens))}
+    for name, (fn, args) in calls.items():
+        grad_args = (args[0].clone().requires_grad_(),) + args[1:]
+        with torch.enable_grad():
+            try:
+                fn(*grad_args)
+                raised = ""
+            except RuntimeError as e:
+                raised = str(e)
+        print(f"[train] {name} on the card with q requiring grad raises: "
+              f"{raised or 'NO'}")
+        check("no backward" in raised, f"{name} ran under autograd")
+
+
+def phase_train(torch, ca, dev, params, cfg, pc, card: str) -> dict:
+    """The training and durability path on the smoke's Llama-3-8B (bf16):
+    (a) ``generate_corpus``: 32 sequences of 16 random prompt and 48
+    greedy tokens at B=8 (K3 in prefill, K1 in decode graphs); (b)
+    ``distill`` of a Llama-3.2-1B-shaped draft (its own seed) on it, 100
+    float32 steps at batch 16 (the loss must fall); (c) ``acceptance_probe``
+    at k=4 on 4 held-out prompts (48 tokens each) for the random-init and
+    the distilled draft, and for the distilled one on 4 corpus prompts;
+    (e) the distilled draft's bf16 params through ``CheckpointManager``
+    (async save, restore with ``like`` onto the card, bitwise equal); (f) an engine on a native shm store holding two live
+    sequences saves its state, a fresh engine resumes it (chunks adopted,
+    K2 on the tails) and decodes 16 greedy tokens by the rank rule against
+    the uninterrupted engine's; then K1/K2/K3 refusing autograd and (d)
+    three ``train_step_fn`` steps on a 512-token batch, IN PLACE on the
+    smoke's weights (the caller drops them after).  Returns the phase's
+    kernel launches, (a) to (f)."""
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.engine.distill import (acceptance_probe,
+                                                      distill,
+                                                      generate_corpus)
+    from infinistore_tpu_torch.models import (LLAMA3_1B, init_params,
+                                              loss_fn, scaled, train_step_fn)
+    from infinistore_tpu_torch.models.llama import leaves
+    from infinistore_tpu_torch.utils import CheckpointManager
+    import numpy as np
+
+    tag = "[train]"
+    t_phase = time.perf_counter()
+    small = dataclasses.replace(pc, n_blocks=256)
+    ca.reset_launches()
+
+    # (a) the corpus, from the target engine
+    target = InferenceEngine(params, cfg, small, device=dev)
+    t0 = time.perf_counter()
+    corpus = generate_corpus(target, n_seqs=CORPUS_SEQS,
+                             prompt_len=CORPUS_PROMPT, gen_len=CORPUS_GEN,
+                             batch=CORPUS_BATCH)
+    torch.cuda.synchronize()
+    kern = dict(ca.LAUNCHES)
+    print(f"{tag} (a) corpus {corpus.shape} from Llama-3-8B at B="
+          f"{CORPUS_BATCH} in {time.perf_counter() - t0:.2f} s, "
+          f"{len(np.unique(corpus[:, CORPUS_PROMPT:]))} distinct generated "
+          f"tokens; launches {_kernel_counts(kern)}")
+    check(kern["flash_causal"] > 0 and kern["paged_decode"] > 0,
+          f"{tag} the corpus launched no K3 or no K1: {kern}")
+
+    # (b) distillation of a Llama-3.2-1B-shaped draft, float32 masters
+    dcfg = LLAMA3_1B
+    p0 = init_params(scaled(dcfg, dtype=torch.float32),
+                     torch.Generator(device=dev).manual_seed(1), dev)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ca.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dparams, losses = distill(dcfg, corpus, steps=DISTILL_STEPS,
+                              batch=DISTILL_BATCH, lr=DISTILL_LR,
+                              params=p0, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} (b) distill Llama-3.2-1B widths ({dcfg.n_layers} layers, "
+          f"dim {dcfg.dim}, vocab {dcfg.vocab_size}) in float32, "
+          f"{DISTILL_STEPS} steps at batch {DISTILL_BATCH} x "
+          f"{corpus.shape[1]} tokens, lr {DISTILL_LR}: losses "
+          f"{[round(x, 5) for x in losses]}; "
+          f"{1e3 * dt / DISTILL_STEPS:.3f} ms/step; peak allocated "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above "
+          f"the resident {base / 2**30:.2f}); kernel launches "
+          f"{_kernel_counts(_launch_delta(ca, before))} ({card})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{tag} distillation did not lower the loss: {losses}")
+    check(all(p.dtype == torch.bfloat16 for p in leaves(dparams)),
+          f"{tag} the distilled params are not bf16")
+    draft0 = {k: ({kk: vv.to(torch.bfloat16) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(torch.bfloat16))
+              for k, v in p0.items()}
+    del p0
+
+    # (c) acceptance of the random-init and the distilled draft
+    def draft_engine(p):
+        return InferenceEngine(p, dcfg, dataclasses.replace(
+            small, n_layers=dcfg.n_layers, n_kv_heads=dcfg.n_kv_heads,
+            head_dim=dcfg.head_dim), device=dev)
+
+    held = [[int(x) for x in np.random.RandomState(100 + i).randint(
+        1, cfg.vocab_size, size=CORPUS_PROMPT)] for i in range(PROBE_PROMPTS)]
+    seen = [[int(t) for t in corpus[i, :CORPUS_PROMPT]]
+            for i in range(PROBE_PROMPTS)]
+    for name, p, prompts in (("random-init", draft0, held),
+                             ("distilled", dparams, held),
+                             ("distilled", dparams, seen)):
+        before = dict(ca.LAUNCHES)
+        t0 = time.perf_counter()
+        acc, per_round = acceptance_probe(target, draft_engine(p), prompts,
+                                          gen_len=PROBE_GEN, k=PROBE_K)
+        torch.cuda.synchronize()
+        which = "held-out" if prompts is held else "corpus"
+        print(f"{tag} (c) acceptance_probe, {name} draft, {PROBE_PROMPTS} "
+              f"{which} prompts ({PROBE_GEN} tokens each): acceptance "
+              f"{acc:.4f}, {per_round:.4f} tokens per round at k={PROBE_K} "
+              f"({time.perf_counter() - t0:.2f} s; launches "
+              f"{_kernel_counts(_launch_delta(ca, before))}) ({card})")
+    del draft0, target
+
+    # (e) the distilled draft's bf16 params through CheckpointManager
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "smoke_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(ckdir, max_to_keep=1)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(dparams))
+    t0 = time.perf_counter()
+    mgr.save(DISTILL_STEPS, dparams, metadata={"losses": losses})
+    t_call = time.perf_counter() - t0
+    mgr.wait()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = mgr.restore(like=dparams)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same = all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b)
+               for a, b in zip(leaves(restored), leaves(dparams)))
+    meta = mgr.restore_metadata()
+    mgr.close()
+    shutil.rmtree(ckdir)
+    print(f"{tag} (e) checkpoint of the distilled draft ({n_bytes / 1e9:.3f} "
+          f"GB bf16): save {t_call:.3f} s to return (device-to-host copy), "
+          f"{t_save:.3f} s to wait() ({n_bytes / 1e9 / t_save:.3f} GB/s); "
+          f"restore onto {dev} {t_restore:.3f} s "
+          f"({n_bytes / 1e9 / t_restore:.3f} GB/s); bitwise equal: {same} "
+          f"({card})")
+    check(same and meta == {"losses": losses},
+          f"{tag} the restored checkpoint differs")
+    del restored, dparams
+
+    # (f) an engine resumed from its saved state over a native shm store
+    _engine_resume(torch, ca, dev, params, cfg, pc, card)
+
+    _refuses_grad(torch, ca, dev)
+    launches = dict(ca.LAUNCHES)
+
+    # (d) full-width train steps on the smoke's weights (in place)
+    tokens = torch.from_numpy(np.random.RandomState(7).randint(
+        1, cfg.vocab_size, size=(1, TRAIN_TOKENS))).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _grads_checked(torch, lambda p, t: loss_fn(p, cfg, t), params, tokens,
+                   f"{tag} (d) Llama-3-8B bf16 B=1 S={TRAIN_TOKENS}")
+    _train_steps(torch, train_step_fn(cfg, lr=TRAIN_LR), params, tokens,
+                 f"{tag} (d) Llama-3-8B bf16, {TRAIN_STEPS} train_step_fn "
+                 f"steps (lr {TRAIN_LR}, B=1, S={TRAIN_TOKENS})", card)
+    print(f"{tag} phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{_kernel_counts(launches)}")
+    return launches
+
+
+def _engine_resume(torch, ca, dev, params, cfg, pc, card: str) -> None:
+    """(f): engine A (native shm store, lossless pages) holds two live
+    sequences and saves its state; engine B, fresh, resumes them (each
+    adopting its stored chunks, K2 on the tail); both decode
+    ``RESUME_NEW`` greedy tokens, B's held to A's by the rank rule."""
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.models import prefill_forward
+    from infinistore_tpu_torch.utils import (resume_engine_state,
+                                             save_engine_state)
+    import numpy as np
+
+    tag = "[train] (f)"
+    small = dataclasses.replace(pc, n_blocks=256)
+    store, port = _start_store(prealloc_gib=1,
+                               min_alloc_kib=max(16, pc.page_bytes // 1024),
+                               backend="native")
+    saved_env = os.environ.get("ISTPU_CLIENT")
+    os.environ["ISTPU_CLIENT"] = "native"
+    conns = []
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_engine_state.json")
+    try:
+        for _ in range(2):
+            c = lib.InfinityConnection(ClientConfig(
+                host_addr="127.0.0.1", service_port=port,
+                connection_type=TYPE_SHM, log_level="warning"))
+            c.connect()
+            conns.append(c)
+        a, b = (InferenceEngine(params, cfg, small, conn=c, kv_quant=None,
+                                model_id="smoke-resume", device=dev)
+                for c in conns)
+        rng = np.random.RandomState(21)
+        prompts = [[int(x) for x in rng.randint(1, cfg.vocab_size, size=n)]
+                   for n in RESUME_LENGTHS]
+        sts = [a.prefill(p) for p in prompts]
+        a.decode_batch(sts, 8)
+        save_engine_state(path, a)
+        before = dict(ca.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = resume_engine_state(path, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        kern = _launch_delta(ca, before)
+        rs = [b.seqs[st.seq_id] for st in sts]
+        print(f"{tag} engine state of {len(sts)} live sequences "
+              f"({[len(st.tokens) for st in sts]} tokens) saved and resumed "
+              f"into a fresh engine in {1e3 * dt:.3f} ms: reused_chunks "
+              f"{[r.reused_chunks for r in rs]} (store "
+              f"{[r.store_chunks for r in rs]}), launches "
+              f"{_kernel_counts(kern)} ({card})")
+        check(n == len(sts) and all(r.tokens == st.tokens
+                                    for r, st in zip(rs, sts)),
+              f"{tag} the resumed sequences differ")
+        check(all(r.reused_chunks > 0 for r in rs) and kern["flash_prefix"]
+              > 0, f"{tag} no chunk adopted or no K2 on the tails")
+        history = [list(st.tokens) for st in sts]
+        want = a.decode_batch(sts, RESUME_NEW)
+        got = b.decode_batch(rs, RESUME_NEW)
+        for h, g, w in zip(history, got, want):
+            rank_rule(torch, prefill_forward, params, cfg, dev, h, g, w,
+                      f"{tag} {len(h)}-token sequence, {RESUME_NEW} tokens "
+                      f"after resume", f32=False)
+    finally:
+        for c in conns:
+            c.close()
+        if saved_env is None:
+            os.environ.pop("ISTPU_CLIENT", None)
+        else:
+            os.environ["ISTPU_CLIENT"] = saved_env
+        _stop(store)
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def phase_train_moe(torch, dev, card: str) -> None:
+    """(d) for the MoE family: Mixtral-8x7B's widths at
+    ``MOE_TRAIN_LAYERS`` of its 32 layers (bf16 weights and their
+    gradients fill the card), random weights drawn on the card from a seed;
+    every leaf's gradient present and finite, then three
+    ``moe_train_step_fn`` steps on one 512-token batch, the loss falling,
+    no kernel launched."""
+    from infinistore_tpu_torch.models import (MIXTRAL_8X7B, init_moe_params,
+                                              moe_loss_fn, moe_train_step_fn,
+                                              scaled_moe)
+    import numpy as np
+
+    tag = "[train] (d)"
+    cfg = scaled_moe(MIXTRAL_8X7B, n_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_moe_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                             dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
+                                      params["ln_out"],
+                                      *params["layers"].values()])
+    print(f"{tag} Mixtral-8x7B widths at {cfg.n_layers} of 32 layers: "
+          f"{n_params / 1e9:.2f} B params (bf16, router f32) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.from_numpy(np.random.RandomState(8).randint(
+        1, cfg.vocab_size, size=(1, TRAIN_TOKENS))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    _grads_checked(torch, lambda p, t: moe_loss_fn(p, cfg, t), params,
+                   tokens, f"{tag} Mixtral widths B=1 S={TRAIN_TOKENS}")
+    torch.cuda.empty_cache()  # the checked gradients' blocks, for the steps
+    _train_steps(torch, moe_train_step_fn(cfg, lr=TRAIN_LR), params, tokens,
+                 f"{tag} Mixtral widths ({cfg.n_layers} layers), "
+                 f"{TRAIN_STEPS} moe_train_step_fn steps (lr {TRAIN_LR}, B=1, "
+                 f"S={TRAIN_TOKENS})", card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---- the tp phase: tensor-parallel serving (ranks in spawned processes) ----
 
 TP_NEW = 32  # greedy new tokens per request on the tp serving path
@@ -4259,13 +4679,18 @@ def main() -> int:
                         port)
         finally:
             _stop(store)
-        # last: the MoE phase needs the card the Llama-3-8B weights held
-        # (the serving phases' engines and servers hold reference cycles:
-        # collected before the cache is emptied)
+        # the serving phases' engines and servers hold reference cycles:
+        # collected before the cache is emptied
+        gc.collect()
+        torch.cuda.empty_cache()
+        # its last step trains the Llama-3-8B weights in place
+        train_launches = phase_train(torch, ca, dev, params, cfg, pc, card)
+        # last: the MoE phases need the card the Llama-3-8B weights held
         del params
         gc.collect()
         torch.cuda.empty_cache()
         moe_launches = phase_moe(torch, ca, dev, card)
+        phase_train_moe(torch, dev, card)
     # each kernel's launches over the path that runs it: K1-K3 the serving
     # path (K2's device-length entry: the K2 launches whose caller passed
     # the length as a device tensor, as the prefill graphs do), K4 the
@@ -4281,6 +4706,7 @@ def main() -> int:
         "lora_launches": lora_launches.get(key, 0),
         "cluster_launches": cluster_launches.get(key, 0),
         "moe_launches": moe_launches.get(key, 0),
+        "train_launches": train_launches.get(key, 0),
         # the multi-device paths, each summed over its ranks
         **{f"{path}_launches": counts.get(key, 0)
            for path, counts in tp["launches"].items()},

@@ -21,9 +21,11 @@ from .llama import (
     LlamaConfig,
     decode_forward,
     init_params,
+    loss_fn,
     prefill_forward,
     rmsnorm,
     scaled,
+    train_step_fn,
     verify_forward,
 )
 from .lora import LoraBank, init_lora_bank, merge_lora
@@ -33,7 +35,9 @@ from .moe import (
     MoEConfig,
     init_moe_params,
     moe_decode_forward,
+    moe_loss_fn,
     moe_prefill_forward,
+    moe_train_step_fn,
     moe_verify_forward,
     scaled_moe,
 )
@@ -44,9 +48,11 @@ __all__ = [
     "paged_multitoken_attention", "repeat_kv",
     "rope_freqs", "params_from_jax", "GEMMA2_9B", "LLAMA3_1B", "LLAMA3_8B",
     "LLAMA3_70B", "MISTRAL_7B", "QWEN3_8B", "QWEN25_7B", "TINY",
-    "LlamaConfig", "decode_forward", "init_params", "prefill_forward",
-    "rmsnorm", "scaled", "verify_forward", "bank_from_jax", "LoraBank",
+    "LlamaConfig", "decode_forward", "init_params", "loss_fn",
+    "prefill_forward", "rmsnorm", "scaled", "train_step_fn",
+    "verify_forward", "bank_from_jax", "LoraBank",
     "init_lora_bank", "merge_lora", "MIXTRAL_8X7B", "TINY_MOE", "MoEConfig",
-    "init_moe_params", "moe_decode_forward", "moe_prefill_forward",
-    "moe_verify_forward", "scaled_moe",
+    "init_moe_params", "moe_decode_forward", "moe_loss_fn",
+    "moe_prefill_forward", "moe_train_step_fn", "moe_verify_forward",
+    "scaled_moe",
 ]

@@ -8,7 +8,10 @@ configurations to its XLA path on every backend (its kernels carry neither
 mask); everything else goes to a hand-written kernel
 (``ops/cuda_attention.py``) for a CUDA tensor and to the plain version for
 a CPU tensor.  The route follows the configuration alone: no switch, no
-exception caught, no fallback when a kernel fails.  The multi-token
+exception caught, no fallback when a kernel fails.  ``use_kernels=False``
+(the reference's ``use_pallas=False``, which its training forward passes)
+takes the plain version on every device: the kernels have no backward,
+and each refuses a call that autograd would record.  The multi-token
 attention of the verify step is plain PyTorch on every device, as the
 reference's is XLA on every backend (``paged_multitoken_attention_xla``
 has no Pallas kernel).
@@ -31,6 +34,7 @@ from ..ops.cuda_attention import (
     flash_prefix_attention_cuda,
     paged_decode_attention_cuda,
     paged_decode_attention_xla,
+    refuse_grad,
     repeat_kv,
 )
 
@@ -105,6 +109,7 @@ def causal_attention(
     prefix_len=None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
     """Causal SDPA.  q: [B, Sq, H, D]; k/v: [B, Sk, H_kv, D] -> [B, Sq, H, D].
 
@@ -115,12 +120,14 @@ def causal_attention(
     ``prefix_pad`` K/V rows are a prefix buffer of which only the first
     ``prefix_len`` are valid.
 
-    With a ``window`` or ``softcap``, and on the CPU: the plain
+    With a ``window`` or ``softcap``, with ``use_kernels=False`` (the
+    training forward: autograd runs through it) and on the CPU: the plain
     ``causal_attention_xla``.  Otherwise on CUDA: K2
     (``flash_prefix_attention_cuda``) in padded-prefix mode, K3
     (``flash_causal_attention_cuda``) otherwise.
     """
-    if q.device.type == "cpu" or window is not None or softcap is not None:
+    if (not use_kernels or q.device.type == "cpu" or window is not None
+            or softcap is not None):
         return causal_attention_xla(
             q, k, v, q_offset=q_offset, prefix_pad=prefix_pad,
             prefix_len=prefix_len, window=window, softcap=softcap,
@@ -159,6 +166,7 @@ def flash_causal_attention_tp(
     prefix_len=None,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    use_kernels: bool = True,
 ) -> torch.Tensor:
     """Tensor-parallel prefill attention on one rank: K3 (or, with
     ``prefix_len``, K2) over the rank's head shard.  The port of the
@@ -178,11 +186,16 @@ def flash_causal_attention_tp(
     tiling; the port's kernels take head sizes 32, 64 and 128, so every
     head size runs the kernel, as the single-rank path does.  A window or a
     softcap takes the plain version on every device and the CPU takes it
-    for every call, as ``causal_attention`` routes them."""
+    for every call, as ``causal_attention`` routes them; so does
+    ``use_kernels=False``.  With the kernels it refuses a call that
+    autograd would record, on every device."""
     _check_shard(q.shape[2], k.shape[2], tp, n_heads, n_kv_heads)
+    if use_kernels:
+        refuse_grad("flash_causal_attention_tp", q, k, v)
     return causal_attention(q, k, v, q_offset=q_offset,
                             prefix_pad=prefix_pad, prefix_len=prefix_len,
-                            window=window, softcap=softcap)
+                            window=window, softcap=softcap,
+                            use_kernels=use_kernels)
 
 
 def paged_decode_attention_tp(
@@ -211,8 +224,10 @@ def paged_decode_attention_tp(
     ``pallas_call`` has no partitioning rule; a CUDA kernel on a shard
     needs none, so the kernel runs on the shards either way.  Routes as
     ``paged_decode_attention`` does (the plain version on the CPU, for a
-    window or a softcap)."""
+    window or a softcap), and refuses a call that autograd would record,
+    on every device."""
     _check_shard(q.shape[1], layer_cache.shape[1], tp, n_heads, n_kv_heads)
+    refuse_grad("paged_decode_attention_tp", q, layer_cache)
     return paged_decode_attention(q, layer_cache, block_table, seq_lens,
                                   window=window, softcap=softcap)
 

@@ -15,6 +15,10 @@ Three entry points:
 * ``verify_forward``: a short run of tokens per sequence against the paged
   cache in one forward (the speculative-decode verify step).
 
+and the training pair: ``loss_fn`` (next-token cross-entropy through
+``prefill_forward(..., use_kernels=False)``: the kernels have no
+backward) and ``train_step_fn`` (plain SGD over every leaf).
+
 Each forward takes ``tp`` (a ``parallel.TPGroup``) to run on one rank's
 Megatron shard of the weights (``parallel/sharding.py``): the local head
 counts come from the weights' shapes, an all-reduce follows ``attn @ wo``
@@ -360,7 +364,7 @@ def _stage_in(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, pp,
 def _stage_layers(params: Params, pp) -> range:
     """The global indices of the layers ``params`` hold."""
     first = 0 if pp is None else pp.first_layer
-    return range(first, first + params["layers"]["wq"].shape[0])
+    return range(first, first + len(params["layers"]["wq"]))
 
 
 def _stage_out(params: Params, cfg: LlamaConfig, x: torch.Tensor, tp, pp,
@@ -395,6 +399,7 @@ def prefill_forward(
     lora_scale: float = 1.0,
     tp=None,
     pp=None,
+    use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
@@ -426,6 +431,11 @@ def prefill_forward(
     whole on every rank.  ``pp`` (a ``parallel.PPGroup``; ``params`` the
     rank's stage): the KV and the prefix hold the stage's layers.  The
     same keywords serve the other forwards.
+
+    ``use_kernels=False`` (the reference's ``use_pallas=False``) runs the
+    plain attention on every device, so autograd reaches every weight:
+    the training forward's route.  With the kernels, a forward that
+    autograd records raises.
     """
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]
@@ -451,11 +461,11 @@ def prefill_forward(
                        prefix_len=prefix_len, window=win,
                        softcap=cfg.attn_softcap)
         if tp is None:
-            attn = causal_attention(q, k, v, **akw)
+            attn = causal_attention(q, k, v, use_kernels=use_kernels, **akw)
         else:
             attn = _attention.flash_causal_attention_tp(
                 q, k, v, tp.size, n_heads=cfg.n_heads,
-                n_kv_heads=cfg.n_kv_heads, **akw)
+                n_kv_heads=cfg.n_kv_heads, use_kernels=use_kernels, **akw)
         x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
     logits = _stage_out(params, cfg, x, tp, pp, None if logits_rows is None
                         else lambda h: h.index_select(1, logits_rows))
@@ -566,3 +576,83 @@ def verify_forward(
         x = _block_tail(layer, cfg, x, attn.reshape(B, S, -1), tp=tp, **lkw)
     return _stage_out(params, cfg, x, tp, pp,
                       (lambda h: h[:, -1:]) if last_only else None), cache
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32: logits [B, S, V] at
+    positions 0..S-2 against tokens [B, S] at 1..S-1."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long()
+    return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def loss_fn(params: Params, cfg: LlamaConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy over [B, S] tokens (the reference's
+    ``loss_fn``, ``models/llama.py:474-481``), through the plain
+    attention: the kernels have no backward."""
+    logits, _ = prefill_forward(params, cfg, tokens, use_kernels=False)
+    return next_token_nll(logits, tokens)
+
+
+def leaves(params: Params) -> list:
+    """The params' tensors, in a fixed order (nested dicts walked by key
+    insertion order)."""
+    out = []
+    for v in params.values():
+        out.extend(leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def trainable(params: Params):
+    """``(tree, pairs)`` for a backward over ``params`` without touching
+    the caller's tensors: ``tree`` is laid out as the forwards read it,
+    each tensor a detached alias that requires grad, and each stacked
+    ``layers`` tensor split into one alias per layer (a list, which the
+    layer loop indexes as it indexes the stack: the backward then writes
+    each layer's gradient once, where slicing one stacked leaf would add
+    a zero-padded copy of the whole stack per layer); ``pairs`` holds
+    (the caller's tensor or the view of it, its alias) in ``tree``'s
+    order."""
+    pairs = []
+
+    def alias(t):
+        a = t.detach().requires_grad_()
+        pairs.append((t, a))
+        return a
+
+    tree = {k: ({n: [alias(w[i]) for i in range(w.shape[0])]
+                 for n, w in v.items()} if k == "layers" else alias(v))
+            for k, v in params.items()}
+    return tree, pairs
+
+
+def sgd_step_fn(loss, lr: float):
+    """``step(params, tokens) -> (params, loss)`` for ``loss(params,
+    tokens)``: the loss and ``torch.autograd.grad`` over every leaf, then
+    plain SGD ``p - lr * g.to(p.dtype)`` IN PLACE under ``no_grad`` (the
+    reference returns new arrays; updating the caller's tensors keeps one
+    copy of the weights on the card, as its donated buffers do).  The
+    caller's tensors need not require grad: the graph runs on aliases of
+    them (``trainable``)."""
+
+    def step(params: Params, tokens: torch.Tensor):
+        tree, pairs = trainable(params)
+        with torch.enable_grad():
+            value = loss(tree, tokens)
+            grads = list(torch.autograd.grad(value, [a for _, a in pairs]))
+        del tree
+        with torch.no_grad():
+            for i, (p, _) in enumerate(pairs):
+                p.sub_(grads[i].to(p.dtype).mul_(lr))
+                grads[i] = None
+        return params, value.detach()
+
+    return step
+
+
+def train_step_fn(cfg: LlamaConfig, lr: float = 1e-3):
+    """The reference's ``train_step_fn`` (``models/llama.py:484-491``):
+    ``step(params, tokens) -> (params, loss)``, one plain-SGD step on
+    ``loss_fn``, the params updated in place (``sgd_step_fn``)."""
+    return sgd_step_fn(lambda p, t: loss_fn(p, cfg, t), lr)

@@ -29,7 +29,16 @@ from .attention import (
     paged_decode_attention,
     paged_multitoken_attention,
 )
-from .llama import LlamaConfig, Params, _attn_qkv, _layer, _mlp, rmsnorm
+from .llama import (
+    LlamaConfig,
+    Params,
+    _attn_qkv,
+    _layer,
+    _mlp,
+    next_token_nll,
+    rmsnorm,
+    sgd_step_fn,
+)
 
 
 @dataclass(frozen=True)
@@ -151,13 +160,15 @@ def moe_prefill_forward(
     prefix_kv: Optional[torch.Tensor] = None,
     prefix_len=None,
     logits_rows: Optional[torch.Tensor] = None,
+    use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V], kv [L, 2, B, S, Hkv, D]).
 
     The contract of ``models.llama.prefill_forward``: a padded ``prefix_kv``
     with a host or device ``prefix_len`` (K2 on the card), ``logits_rows``
-    for the LM head.  Every layer takes ``cfg.sliding_window``, as the
-    reference's MoE forwards do."""
+    for the LM head, ``use_kernels=False`` for the plain attention on every
+    device (the training route).  Every layer takes ``cfg.sliding_window``,
+    as the reference's MoE forwards do."""
     B, S = tokens.shape
     P = 0 if prefix_kv is None else prefix_kv.shape[3]
     start = P if prefix_len is None else prefix_len
@@ -170,7 +181,8 @@ def moe_prefill_forward(
                             positions)
         kvs.append(torch.stack([k, v], dim=0))
         if prefix_kv is None:
-            attn = causal_attention(q, k, v, window=cfg.sliding_window)
+            attn = causal_attention(q, k, v, window=cfg.sliding_window,
+                                    use_kernels=use_kernels)
         else:
             k_full = torch.cat([prefix_kv[li, 0], k], dim=1)
             v_full = torch.cat([prefix_kv[li, 1], v], dim=1)
@@ -178,6 +190,7 @@ def moe_prefill_forward(
                 q, k_full, v_full, q_offset=P,
                 prefix_pad=P if prefix_len is not None else None,
                 prefix_len=prefix_len, window=cfg.sliding_window,
+                use_kernels=use_kernels,
             )
         x = x + attn.reshape(B, S, -1) @ layer["wo"]
         x = x + moe_ffn(layer, _norm(cfg, x, layer["ln_mlp"]), cfg.top_k)
@@ -242,3 +255,19 @@ def moe_verify_forward(
         x = x + moe_ffn(layer, _norm(cfg, x, layer["ln_mlp"]), cfg.top_k)
     x = _norm(cfg, x, params["ln_out"])
     return x @ params["lm_head"], cache
+
+
+def moe_loss_fn(params: Params, cfg: MoEConfig,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy of the MoE model (the reference's
+    ``moe_loss_fn``, ``models/moe.py:255-261``), through the plain
+    attention and the dense ``moe_ffn``."""
+    logits, _ = moe_prefill_forward(params, cfg, tokens, use_kernels=False)
+    return next_token_nll(logits, tokens)
+
+
+def moe_train_step_fn(cfg: MoEConfig, lr: float = 1e-3):
+    """The reference's ``moe_train_step_fn`` (``models/moe.py:264-270``):
+    one plain-SGD step on ``moe_loss_fn``, the params updated in place
+    (``models.llama.sgd_step_fn``)."""
+    return sgd_step_fn(lambda p, t: moe_loss_fn(p, cfg, t), lr)

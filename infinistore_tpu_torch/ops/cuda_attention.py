@@ -20,10 +20,15 @@ CUDA C++ in ``csrc/`` (built by ``build.py`` at first use):
   replaces ``paged_decode_attention_pallas_alllayers``.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
-only then.  For a CUDA tensor it checks device, type, shape, contiguity and
-alignment, launches the kernel on the current stream, raises if the launch
-fails, and counts the launch against the launching thread in
-``BY_THREAD``; it never falls back.  ``LAUNCHES`` reads the sum over the
+only then.  No kernel has a backward (nor had the Pallas kernels): a
+wrapper called where autograd would record it, grad mode on and an input
+requiring grad, raises on every device rather than hand back an output
+cut out of the graph; training runs the plain attention by the caller's
+``use_kernels=False`` (``models/llama.py:loss_fn``).  For a CUDA tensor
+it checks device, type, shape, contiguity and alignment, launches the
+kernel on the current stream, raises if the launch fails, and counts the
+launch against the launching thread in ``BY_THREAD``; it never falls
+back.  ``LAUNCHES`` reads the sum over the
 threads: in an in-process fleet each worker's engine thread launches and
 replays its own kernels.  A call made while its stream is being captured
 into a CUDA graph launches nothing: it counts in ``CAPTURED`` instead, and
@@ -220,6 +225,16 @@ def _check_attention_dtype(q: torch.Tensor) -> None:
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the CUDA attention kernels are built for head_dim "
                          f"in {HEAD_DIMS}, got {q.shape[-1]}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record this call (grad mode on and one of
+    ``tensors`` requiring grad): the kernels write into outputs without a
+    ``grad_fn``, so a backward would silently skip them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad(), or run "
+            f"the plain attention (use_kernels=False) where gradients flow")
 
 
 # ---- plain versions ----
@@ -449,6 +464,7 @@ def paged_decode_attention_cuda(
 ) -> torch.Tensor:
     """K1 (``csrc/paged_decode.cu``); same signature and layout as
     ``paged_decode_attention_xla``, which it runs for CPU tensors."""
+    refuse_grad("K1", q, layer_cache)
     if q.device.type == "cpu":
         return paged_decode_attention_xla(q, layer_cache, block_table, seq_lens)
     if q.device.type != "cuda":
@@ -472,6 +488,7 @@ def paged_decode_attention_alllayers_cuda(
     signature and layout as ``paged_decode_attention_alllayers_xla``, which
     it runs for CPU tensors.  Its output equals L K1 launches bit for
     bit."""
+    refuse_grad("K4", qs, cache)
     if qs.device.type == "cpu":
         return paged_decode_attention_alllayers_xla(qs, cache, block_table,
                                                     seq_lens)
@@ -523,6 +540,7 @@ def flash_causal_attention_cuda(
     """K3 (``csrc/flash_attention.cu``): causal GQA attention, query row i at
     key position ``q_offset + i``.  q: [B, Sq, H, D]; k/v: [B, Sk, H_kv, D]
     -> [B, Sq, H, D].  Runs ``causal_attention_xla`` for CPU tensors."""
+    refuse_grad("K3", q, k, v)
     if q.device.type == "cpu":
         return causal_attention_xla(q, k, v, q_offset=q_offset)
     if q.device.type != "cuda":
@@ -550,6 +568,7 @@ def flash_prefix_attention_cuda(
     reads whatever length the tensor holds at each replay; a value outside
     [0, prefix_pad] acts as the nearer end).  Both launch the same
     kernel."""
+    refuse_grad("K2", q, k, v)
     if q.device.type == "cpu":
         return causal_attention_xla(q, k, v, prefix_pad=prefix_pad,
                                     prefix_len=prefix_len)

@@ -1604,3 +1604,110 @@ def test_serve_tp_over_nccl_needs_a_card_per_rank(dev):
     assert r.returncode != 0
     assert "needs a card per rank" in r.stderr, r.stderr[-500:]
     assert "gloo" in r.stderr
+
+
+# ---- training on the card: the plain attention under autograd ----
+
+def _tiny(dtype, seed=0):
+    from infinistore_tpu_torch.models import TINY, init_params, scaled
+
+    cfg = scaled(TINY, dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+
+
+def _on(tree, dev):
+    return {k: _on(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_train_step_on_the_card(dev):
+    """One ``train_step_fn`` step on the card (float32, TINY): every
+    leaf's gradient present, finite and nonzero, no kernel launched (the
+    training forward takes the plain attention), and the loss and the
+    updated params within float32 tolerance of the same step on the
+    CPU."""
+    from infinistore_tpu_torch.models import loss_fn, train_step_fn
+    from infinistore_tpu_torch.models.llama import leaves
+
+    cfg, cpu = _tiny(torch.float32)
+    gpu = _on(cpu, dev)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)))
+    live = [p.detach().requires_grad_() for p in leaves(gpu)]
+    it = iter(live)
+    tree = {k: ({kk: next(it) for kk in v} if isinstance(v, dict)
+                else next(it)) for k, v in gpu.items()}
+    ca.reset_launches()
+    grads = torch.autograd.grad(loss_fn(tree, cfg, tokens.to(dev)), live)
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               and float(g.abs().max()) > 0 for g in grads)
+    step = train_step_fn(cfg, lr=1e-2)
+    gpu, gloss = step(gpu, tokens.to(dev))
+    cpu, closs = step(cpu, tokens)
+    torch.cuda.synchronize()
+    assert not any(ca.LAUNCHES.values())
+    assert abs(float(gloss) - float(closs)) <= 1e-4 * abs(float(closs))
+    for a, b in zip(leaves(gpu), leaves(cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def test_forward_with_the_kernels_refuses_autograd(dev):
+    """The serving forward (kernels on) raises under autograd instead of
+    cutting the attention out of the graph; ``use_kernels=False`` runs."""
+    from infinistore_tpu_torch.models import prefill_forward
+
+    cfg, cpu = _tiny(torch.bfloat16)
+    params = _on(cpu, dev)
+    params["layers"]["wq"].requires_grad_()
+    tokens = torch.arange(16, device=dev)[None]
+    with pytest.raises(RuntimeError, match="no backward"):
+        prefill_forward(params, cfg, tokens)
+    logits, _ = prefill_forward(params, cfg, tokens, use_kernels=False)
+    (g,) = torch.autograd.grad(logits.float().sum(),
+                               [params["layers"]["wq"]])
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_kernels_refuse_autograd_on_the_card(dev, kernel):
+    q, cache, table, lens = _paged(2, 8, 2, 64, 16, 16, 4, torch.bfloat16,
+                                   dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    qs = torch.randn(1, 64, 8, 64, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    kv = torch.randn(1, 128, 2, 64, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    call = {"K1": lambda q1: ca.paged_decode_attention_cuda(q1, cache, table,
+                                                            lens),
+            "K2": lambda q1: ca.flash_prefix_attention_cuda(q1, kv, kv, 64,
+                                                            40),
+            "K3": lambda q1: ca.flash_causal_attention_cuda(q1, kv[:, :64],
+                                                            kv[:, :64])}
+    q1 = q if kernel == "K1" else qs
+    want = call[kernel](q1)
+    ca.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call[kernel](q1.clone().requires_grad_())
+    assert not any(ca.LAUNCHES.values())
+    with torch.no_grad():
+        assert torch.equal(call[kernel](q1.clone().requires_grad_()), want)
+
+
+def test_checkpoint_restored_onto_the_card_bitwise(dev, tmp_path):
+    """``CheckpointManager``: bf16 params on the card saved asynchronously,
+    restored with ``like`` onto ``cuda`` bitwise equal (dtype and device
+    kept)."""
+    from infinistore_tpu_torch.models.llama import leaves
+    from infinistore_tpu_torch.utils import CheckpointManager
+
+    _cfg, cpu = _tiny(torch.bfloat16, seed=4)
+    params = _on(cpu, dev)
+    mgr = CheckpointManager(str(tmp_path / "ck"), max_to_keep=1)
+    mgr.save(1, params, metadata={"model": "tiny"})
+    mgr.wait()
+    got = mgr.restore(like=params)
+    for a, b in zip(leaves(got), leaves(params)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert mgr.restore_metadata() == {"model": "tiny"}
+    mgr.close()
