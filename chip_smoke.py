@@ -101,8 +101,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    one node (``--src-device cuda``) must exit 0; K1-K3 counted from 0
    over A's and B's prefills and decodes;
 7. fleet path: the store phase's server backs a prefill worker and a decode
-   worker (``InferenceEngine`` + ``ServingServer`` each, Llama-3-8B,
-   lossless pages) behind the port's ``FrontDoor``, in this process; 8
+   worker (``InferenceEngine`` + ``ServingServer`` each, the first
+   ``FLEET_LAYERS`` (8) of Llama-3-8B's 32 layers at full width, lossless
+   pages) behind the port's ``FrontDoor``, in this process; 8
    fresh prompts of 512-1500 tokens streamed through the router one at a
    time, then 8 more at once: all 200 with no router 5xx, each decode
    record adopting (prompt tokens - 1) // 16 chunks from the store, the
@@ -707,7 +708,7 @@ def logits_agree(torch, got, want, what: str, max_err: bool = True) -> float:
 
 def phase_model(torch, ca, bench_gpu, dev, card: str, params, cfg, pc):
     """The serving path; returns its launch counts, the decode-step
-    profile, the engine and each request's TTFT (ms) by prompt length."""
+    profile and the engine."""
     from infinistore_tpu_torch.engine import InferenceEngine, Scheduler
     from infinistore_tpu_torch.models import prefill_forward
     from infinistore_tpu_torch.utils.metrics import MetricsRegistry
@@ -805,10 +806,7 @@ def phase_model(torch, ca, bench_gpu, dev, card: str, params, cfg, pc):
                  f"tokens)")
     prof = phase_profile(torch, bench_gpu, engine,
                          [p for p, _n, _kw in reqs], card)
-    # each request's TTFT by its prompt length (all 8 submitted at once)
-    ttft_by_len = {len(p): (finished[i].t_first - finished[i].t_submit) * 1e3
-                   for (p, _n, _kw), i in zip(reqs, ids)}
-    return launches, prof, engine, ttft_by_len
+    return launches, prof, engine
 
 
 def _device_time_by_kind(torch, prof):
@@ -1325,9 +1323,10 @@ def _http(port: int, method: str, path: str, body=None):
 
 
 def _sse_stream(port: int, body: dict, headers=None):
-    """A streamed completion up to [DONE]: its token ids and, per event
-    that carried tokens, (seconds since the request was sent, tokens so
-    far)."""
+    """A streamed completion up to [DONE]: its token ids (every choice's,
+    in the order the events came), per event that carried tokens (seconds
+    since the request was sent, tokens so far), and each choice index's
+    token ids."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
@@ -1337,7 +1336,7 @@ def _sse_stream(port: int, body: dict, headers=None):
                  {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     check(resp.status == 200, f"streamed request answered {resp.status}")
-    toks, stamps, buf, done = [], [], b"", False
+    toks, stamps, per, buf, done = [], [], {}, b"", False
     while not done:
         chunk = resp.read1(65536)
         if not chunk:
@@ -1351,13 +1350,15 @@ def _sse_stream(port: int, body: dict, headers=None):
             if payload == b"[DONE]":
                 done = True
                 break
-            new = json.loads(payload)["choices"][0]["token_ids"]
+            choice = json.loads(payload)["choices"][0]
+            new = choice["token_ids"]
+            per.setdefault(choice["index"], []).extend(new)
             if new:
                 toks.extend(new)
                 stamps.append((time.perf_counter() - t0, len(toks)))
     conn.close()
     check(done, "the stream ended without [DONE]")
-    return toks, stamps
+    return toks, stamps, per
 
 
 def phase_serve(torch, ca, engine, cfg, card: str) -> None:
@@ -1390,7 +1391,7 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
         t0 = time.perf_counter()
         p = prompt(12)
         greedy = complete({"prompt": p, "max_tokens": 16, "temperature": 0})
-        streamed, _stamps = _sse_stream(srv.port, {
+        streamed, _stamps, _per = _sse_stream(srv.port, {
             "prompt": p, "max_tokens": 16, "temperature": 0})
         print(f"[serve] greedy {len(greedy['token_ids'])} tokens; streamed "
               f"twin equal: {streamed == greedy['token_ids']}")
@@ -1424,6 +1425,54 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
         print(f"[serve] penalized: {len(pen)} tokens; logit_bias +100 on "
               f"{forced}: {biased}")
         check(biased == [forced] * 6, f"logit_bias did not force: {biased}")
+        # n=2 with a seed: two choices, the usage summing both; the same
+        # request streamed gives each index the non-streamed choice
+        nbody = {"prompt": prompt(13), "max_tokens": 12, "temperature": 0.8,
+                 "top_p": 0.95, "seed": 4321, "n": 2}
+        status, data = _http(srv.port, "POST", "/v1/completions", nbody)
+        nres = json.loads(data)
+        check(status == 200, f"serve: n=2 answered {status}: {nres}")
+        lens = [len(c["token_ids"]) for c in nres["choices"]]
+        idx = [c["index"] for c in nres["choices"]]
+        used = nres["usage"]["completion_tokens"]
+        print(f"[serve] n=2 seeded: indices {idx}, usage.completion_tokens "
+              f"{used} against the choices' {lens}")
+        check(idx == [0, 1] and used == sum(lens),
+              f"serve: n=2 choices or usage wrong: {nres}")
+        per = _sse_stream(srv.port, nbody)[2]
+        same = sorted(per) == [0, 1] and all(
+            per[c["index"]] == c["token_ids"] for c in nres["choices"])
+        print(f"[serve] n=2 streamed: each index's stream equal to its "
+              f"non-streamed choice: {same}")
+        check(same, f"serve: streamed n=2 {per} differs from {nres}")
+        # echo with logprobs: a record per prompt token (the first null)
+        # and per new token
+        ep = prompt(7)
+        ech = complete({"prompt": ep, "max_tokens": 5, "temperature": 0,
+                        "echo": True, "logprobs": 2})
+        elp = ech["logprobs"]["token_logprobs"]
+        ok_echo = (ech["token_ids"][:len(ep)] == ep
+                   and len(ech["token_ids"]) == len(ep) + 5
+                   and len(elp) == len(ep) + 5 and elp[0] is None
+                   and all(x is not None and x <= 0.0 for x in elp[1:]))
+        print(f"[serve] echo with logprobs=2: {len(elp)} records for "
+              f"{len(ep)} prompt + 5 new tokens, the first null: {ok_echo}")
+        check(ok_echo, f"serve: echo+logprobs malformed: {ech}")
+        # stop_token_ids: a token of the greedy answer that did not come
+        # earlier in it, at position 5 or after; generation ends on it (the
+        # stop id included, as the reference returns it)
+        g = greedy["token_ids"]
+        i = next((j for j in range(5, len(g)) if g[j] not in g[:j]), None)
+        check(i is not None, f"serve: no new token at position >= 5 in {g}")
+        stopped = complete({"prompt": p, "max_tokens": 16, "temperature": 0,
+                            "stop_token_ids": [g[i]]})
+        ok_stop = (stopped["token_ids"] == g[:i + 1]
+                   and stopped["finish_reason"] == "stop")
+        print(f"[serve] stop_token_ids [{g[i]}] (greedy position {i}): "
+              f"{len(stopped['token_ids'])} tokens, finish_reason "
+              f"{stopped['finish_reason']!r}, equal to the greedy answer's "
+              f"first {i + 1}: {ok_stop}")
+        check(ok_stop, f"serve: stop_token_ids: {stopped} against {g}")
         wall = time.perf_counter() - t0
         status, metrics = _http(srv.port, "GET", "/metrics")
         text = metrics.decode()
@@ -1437,7 +1486,7 @@ def phase_serve(torch, ca, engine, cfg, card: str) -> None:
               f"serve: /debug/engine: {eng}")
         launches = dict(ca.LAUNCHES)
         replays = engine.graph_replays["decode"] - replays0
-        print(f"[serve] 7 requests in {wall:.3f} s; /debug/engine: "
+        print(f"[serve] 11 requests in {wall:.3f} s; /debug/engine: "
               f"{eng['summary']['steps']} steps, {eng['summary']['compiles']} "
               f"graph captures ({eng['summary']['compile_s']:.3f} s), "
               f"dispatches {json.dumps(eng['summary']['dispatches'])}; "
@@ -1475,6 +1524,7 @@ def _start_store(prealloc_gib: int, min_alloc_kib: int,
          "--log-level", "warning", "--backend", backend],
         cwd=os.path.dirname(os.path.abspath(__file__)),
     )
+    proc.manage_port = mport
     if wait:
         _await_store(proc, port)
     return proc, port
@@ -1607,13 +1657,273 @@ def _read_rates(np, tx, chunk_keys_) -> str:
             f" GB/s, into pageable {rate(lambda: np.copyto(pageable, src))} GB/s")
 
 
+def _manage(mport: int, method: str, path: str, body=None):
+    """A store server's manage plane: the JSON answer of ``path``."""
+    status, data = _http(mport, method, path, body)
+    check(status == 200, f"the store's {method} {path} answered {status}: "
+                         f"{data[:300]!r}")
+    return json.loads(data)
+
+
+def _wait_stamped(mport: int, timeout: float = 60.0) -> dict:
+    """Wait until the store stamped a checksum on every committed entry,
+    so an armed corruption is detected, not raced by the stamping."""
+    deadline = time.time() + timeout
+    while True:
+        rep = _manage(mport, "GET", "/debug/integrity")
+        if rep["unverified"] == 0 and rep["stamp_backlog"] == 0:
+            return rep
+        check(time.time() < deadline,
+              f"the store's stamping backlog did not drain: {rep}")
+        time.sleep(0.05)
+
+
+def _family(name: str, **labels) -> float:
+    """This process's counter ``name`` (the port's registry), summed over
+    the series whose labels include ``labels``."""
+    from infinistore_tpu_torch.utils import metrics as m
+
+    parsed = m.parse_prometheus_text(m.default_registry().to_prometheus_text())
+    return sum(v for (n, lab), v in parsed.items() if n == name
+               and set(labels.items()) <= set(lab))
+
+
+def _cold_tokens(torch, b, prompt, n: int) -> tuple:
+    """``b``'s store-free cold prefill of ``prompt`` (under a key namespace
+    of its own, so its local prefix cache cannot serve it) and ``n``
+    greedy tokens: (tokens, prefill wall ms)."""
+    saved = b.model_id
+    b.model_id = f"{saved}-cold"
+    try:
+        with _store_free(b):
+            _sync(torch, b.device)
+            t0 = time.perf_counter()
+            st = b.prefill(prompt)
+            _sync(torch, b.device)
+            ms = (time.perf_counter() - t0) * 1e3
+            toks = b.decode(st, n)
+            b.release(st)
+    finally:
+        b.model_id = saved
+    return toks, ms
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _prefill_kernels(before: dict) -> dict:
+    """K3's and K2's launches since the ``cuda_attention.LAUNCHES``
+    snapshot ``before`` (eager launches and graph replays alike)."""
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    return {k: ca.LAUNCHES.get(k, 0) - before.get(k, 0)
+            for k in ("flash_causal", "flash_prefix")}
+
+
+DEGRADED_NEW = 16  # greedy tokens each degraded case decodes
+
+
+def _corrupted_load(torch, dev, params, cfg, pc, a, b, port: int,
+                    mport: int, prompt) -> dict:
+    """The store path's integrity contract on the Python runtime (shm,
+    lossless pages): A pushes ``prompt``; with ``GET_DESC`` armed to
+    corrupt once, B's prefill finds the hit, the load fails verification
+    and B recomputes (``reused_chunks`` 0) on K3/K2 in its prefill graphs,
+    its greedy tokens those of its store-free cold prefill, the client's
+    checksum/lease failures up by at least one, its breaker closed.
+    Disarmed, a third engine adopts every chunk again (the failed pages
+    deleted, B's recompute pushed them afresh) and decodes B's tokens."""
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    tag = "[store degraded: corrupted load]"
+    want = (len(prompt) - 1) // pc.block_tokens
+    sa = a.prefill(prompt)  # strict: every page in the store on return
+    a.release(sa)
+    _wait_stamped(mport)
+    before = (_family("istpu_integrity_failures_total", cause="checksum")
+              + _family("istpu_integrity_failures_total", cause="lease"))
+    _manage(mport, "POST", "/faults",
+            [{"op": "GET_DESC", "action": "corrupt", "times": 1}])
+    k0 = dict(ca.LAUNCHES)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    sb = b.prefill(prompt)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    kern = _prefill_kernels(k0)
+    tb = b.decode(sb, DEGRADED_NEW)
+    b.release(sb)
+    after = (_family("istpu_integrity_failures_total", cause="checksum")
+             + _family("istpu_integrity_failures_total", cause="lease"))
+    injected = _manage(mport, "POST", "/faults", [])
+    cold, cold_ms = _cold_tokens(torch, b, prompt, DEGRADED_NEW)
+    print(f"{tag} B's prefill of the {len(prompt)}-token prompt A pushed: "
+          f"reused_chunks {sb.reused_chunks}, {ms:.3f} ms (store hops "
+          f"{sb.store_load_s * 1e3:.3f} ms, the recompute and the strict "
+          f"re-push), K3/K2 launches {json.dumps(kern)}; checksum+"
+          f"lease failures {before:.0f} -> {after:.0f}; breaker "
+          f"{b.breaker.state!r}; faults disarmed ({json.dumps(injected)})")
+    print(f"{tag} B's {DEGRADED_NEW} greedy tokens equal to its store-free "
+          f"cold prefill's ({cold_ms:.3f} ms): {tb == cold}")
+    check(sb.reused_chunks == 0, f"{tag} B reused {sb.reused_chunks} chunks "
+                                 f"of a corrupted load")
+    check(tb == cold, f"{tag} B's tokens {tb} differ from its cold {cold}")
+    check(after >= before + 1, f"{tag} no checksum/lease failure counted")
+    check(b.breaker.state == "closed", f"{tag} bad bytes moved the breaker "
+                                       f"to {b.breaker.state!r}")
+    check(kern["flash_causal"] > 0 and kern["flash_prefix"] > 0,
+          f"{tag} the recompute launched {kern}")
+    t_stamp = time.perf_counter()
+    _wait_stamped(mport)
+    t_stamp = time.perf_counter() - t_stamp
+    t_build = time.perf_counter()
+    c = lib.InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=port, connection_type=TYPE_SHM,
+        log_level="warning"))
+    c.connect()
+    try:
+        eng = InferenceEngine(params, cfg, dataclasses.replace(
+            pc, n_blocks=256), conn=c, kv_quant=None, prefill_chunk=512,
+            model_id=a.model_id, device=dev)
+        t_build = time.perf_counter() - t_build
+        k0 = dict(ca.LAUNCHES)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        sc = eng.prefill(prompt)
+        _sync(torch, dev)
+        c_ms = (time.perf_counter() - t0) * 1e3
+        kern_c = _prefill_kernels(k0)
+        t_dec = time.perf_counter()
+        tc = eng.decode(sc, DEGRADED_NEW)
+        t_dec = time.perf_counter() - t_dec
+        print(f"{tag} a third engine adopts {sc.reused_chunks} of {want} "
+              f"chunks in {c_ms:.3f} ms (its first prefill: the tail's "
+              f"graph captured in it), K3/K2 launches "
+              f"{json.dumps(kern_c)}; its tokens equal B's: {tc == tb}; "
+              f"seconds: the stamping wait {t_stamp:.2f}, the engine "
+              f"built {t_build:.2f}, its first decode {t_dec:.2f}")
+        check(sc.reused_chunks == want, f"{tag} the re-adoption took "
+                                        f"{sc.reused_chunks} of {want}")
+        check(tc == tb, f"{tag} the re-adopted tokens {tc} differ from {tb}")
+        check(kern_c["flash_prefix"] > 0,
+              f"{tag} the re-adopted tail launched no K2")
+        eng.release(sc)
+        eng.transfer.close()
+    finally:
+        c.close()
+    return {"recompute_ms": ms, "cold_ms": cold_ms, "readopt_ms": c_ms}
+
+
+def _dead_store(torch, dev, params, cfg, pc, proc, port: int,
+                prompts) -> dict:
+    """The store path's degradation contract on one more small Python
+    store server (``proc`` serving ``port``, started by the caller): A
+    pushes ``prompts[0]`` into it, B (relaxed durability, 1 s op timeout)
+    decodes it store-free (its cold tokens, its graphs captured), then the
+    server is stopped.  B prefills the prompt: its lookup fails, it
+    recomputes on K3/K2 in its prefill graphs with its cold tokens, and
+    its pushes fail; ``prompts[1]`` is one more failed hop.  After the
+    breaker's ``failure_threshold`` failures it is open, the pushes are
+    counted as dropped and ``store_flush`` re-raises with their count."""
+    from infinistore_tpu_torch import lib
+    from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM
+    from infinistore_tpu_torch.engine import InferenceEngine
+    from infinistore_tpu_torch.ops import cuda_attention as ca
+
+    tag = "[store degraded: dead store]"
+    small = dataclasses.replace(pc, n_blocks=256)
+    conns, engines = [], []
+    try:
+        _await_store(proc, port)
+        for timeout in (None, 1.0):
+            c = lib.InfinityConnection(ClientConfig(
+                host_addr="127.0.0.1", service_port=port,
+                connection_type=TYPE_SHM, log_level="error",
+                op_timeout_s=timeout))
+            c.connect()
+            conns.append(c)
+        a = InferenceEngine(params, cfg, small, conn=conns[0], kv_quant=None,
+                            prefill_chunk=512, model_id="smoke-dead",
+                            device=dev)
+        b = InferenceEngine(params, cfg, small, conn=conns[1], kv_quant=None,
+                            prefill_chunk=512, model_id="smoke-dead",
+                            store_durability="relaxed", device=dev)
+        engines += [a, b]
+        a.release(a.prefill(prompts[0]))
+        # B's cold tokens, its graphs captured outside the timed hop
+        ta, _ms = _cold_tokens(torch, b, prompts[0], DEGRADED_NEW)
+        _stop(proc)
+        drops0 = _family("istpu_store_push_dropped_total")
+        k0 = dict(ca.LAUNCHES)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        sb = b.prefill(prompts[0])
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        kern = _prefill_kernels(k0)
+        tb = b.decode(sb, DEGRADED_NEW)
+        b.release(sb)
+        state1 = b.breaker.state
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        s2 = b.prefill(prompts[1])
+        _sync(torch, dev)
+        ms2 = (time.perf_counter() - t0) * 1e3
+        b.release(s2)
+        deadline = time.time() + 10  # relaxed pushes fail asynchronously
+        while b.breaker.state != "open" and time.time() < deadline:
+            time.sleep(0.02)
+        try:
+            b.store_flush()
+            flushed = None
+        except Exception as e:  # noqa: BLE001 — the contract: it re-raises
+            # the drop count rides ``args``: an OSError's str() ignores
+            # them, as in the reference (ROADMAP queue 3)
+            flushed = f"{type(e).__name__}: {e.args[0] if e.args else e}"
+        drops = _family("istpu_store_push_dropped_total") - drops0
+        print(f"{tag} B's prefill of the prompt A pushed, the store "
+              f"stopped: reused_chunks {sb.reused_chunks}, {ms:.3f} ms "
+              f"(store hops {sb.store_load_s * 1e3:.3f} ms), K3/K2 launches "
+              f"{json.dumps(kern)}, tokens equal to its cold ones: "
+              f"{tb == ta}; breaker {state1!r}, then after a second "
+              f"prefill ({ms2:.3f} ms, reused {s2.reused_chunks}) "
+              f"{b.breaker.state!r} (threshold "
+              f"{b.breaker.failure_threshold}); pushes dropped {drops:.0f}; "
+              f"store_flush raised: {flushed}")
+        check(sb.reused_chunks == 0 and s2.reused_chunks == 0,
+              f"{tag} a prefill reused chunks of a dead store")
+        check(tb == ta, f"{tag} B's tokens {tb} differ from its cold {ta}")
+        check(kern["flash_causal"] > 0 and kern["flash_prefix"] > 0,
+              f"{tag} the recompute launched {kern}")
+        check(b.breaker.state == "open", f"{tag} the breaker is "
+                                         f"{b.breaker.state!r}")
+        check(drops >= 1, f"{tag} no dropped push counted")
+        check(flushed is not None and "dropped" in flushed,
+              f"{tag} store_flush did not report the drops: {flushed}")
+        return {"recompute_ms": ms, "second_ms": ms2}
+    finally:
+        if proc.poll() is None:
+            _stop(proc)
+        for e in engines:
+            e.transfer.close()
+        for c in conns:
+            c.close()
+
+
 def _store_case(torch, dev, params, cfg, pc, port: int, transport: str,
-                quant, seed: int, runtime: str) -> dict:
+                quant, seed: int, runtime: str, mport=None) -> dict:
     """Engine A prefills a fresh 1500-token prompt into the store; engine B
     (same weights, own connection and cache) adopts its pages and computes
     only the tail through a prefill graph; both decode 32 greedy tokens.
     ``runtime``: the store server's and both clients' ("python" or
-    "native").  Returns the case's times."""
+    "native").  With ``mport`` (the Python runtime's manage port, shm) the
+    degraded cases follow on the same engines: a corrupted load, then a
+    dead store.  Returns the case's times."""
     from infinistore_tpu_torch import lib
     from infinistore_tpu_torch.config import ClientConfig, TYPE_SHM, TYPE_TCP
     from infinistore_tpu_torch.engine import InferenceEngine
@@ -1822,8 +2132,33 @@ def _store_case(torch, dev, params, cfg, pc, port: int, transport: str,
                   f"pinned ring's {push_s * 1e3:.3f} ms")
         for e, st in ((a, sa), (b, sb)):
             e.release(st)
-        return {"adopted_ms": ttft_b, "cold_ms": cold_b, "hops_ms": hops,
-                "fetch_ms": fetch, "tail_ms": load["tail_ms"]}
+        out = {"adopted_ms": ttft_b, "cold_ms": cold_b, "hops_ms": hops,
+               "fetch_ms": fetch, "tail_ms": load["tail_ms"]}
+        if mport is not None:
+            t_deg = time.perf_counter()
+            # the dead-store case's server boots while the first case runs
+            dead_proc, dead_port = _start_store(
+                prealloc_gib=1, min_alloc_kib=max(16, pc.page_bytes // 1024),
+                wait=False)
+            try:
+                corrupt = _corrupted_load(torch, dev, params, cfg, pc, a, b,
+                                          port, mport, fresh())
+                t_corrupt = time.perf_counter() - t_deg
+                dead = _dead_store(torch, dev, params, cfg, pc, dead_proc,
+                                   dead_port, [fresh() for _ in range(2)])
+            finally:
+                if dead_proc.poll() is None:
+                    _stop(dead_proc)
+            print(f"[store degraded] wall ms: the recompute after a corrupted "
+                  f"load {corrupt['recompute_ms']:.3f}, after a dead store "
+                  f"{dead['recompute_ms']:.3f} (then {dead['second_ms']:.3f}"
+                  f"), beside B's adopted {ttft_b:.3f} and store-free cold "
+                  f"{cold_b:.3f}; the re-adoption {corrupt['readopt_ms']:.3f}"
+                  f"; the two cases took {time.perf_counter() - t_deg:.1f} s"
+                  f" (the corrupted load {t_corrupt:.1f} s)")
+            out.update(corrupt_recompute_ms=corrupt["recompute_ms"],
+                       dead_recompute_ms=dead["recompute_ms"])
+        return out
     finally:
         if saved_env is None:
             os.environ.pop("ISTPU_CLIENT", None)
@@ -1844,11 +2179,15 @@ def _stop(proc) -> None:
         proc.wait()
 
 
-def phase_store(torch, ca, dev, params, cfg, pc, ports: dict) -> dict:
+def phase_store(torch, ca, dev, params, cfg, pc, ports: dict,
+                manage_port: int) -> dict:
     """The store hop through the port's store servers (``ports``: runtime
     -> service port), shm with full-precision pages, then TCP with int8
-    pages, on the Python runtime and then the native one; returns each
-    case's times (B adopted, its fetch and tail, B store-free cold)."""
+    pages, on the Python runtime and then the native one; the Python
+    runtime's shm case then runs the degraded cases (its server's manage
+    port ``manage_port`` arms the faults; the native runtime arms none).
+    Returns each case's times (B adopted, its fetch and tail, B store-free
+    cold; the recomputes)."""
     ca.reset_launches()
     torch.cuda.synchronize()
     seed = 11
@@ -1857,7 +2196,10 @@ def phase_store(torch, ca, dev, params, cfg, pc, ports: dict) -> dict:
         for transport, quant in (("shm", None), ("tcp", "int8")):
             times[f"{runtime} {transport}"] = _store_case(
                 torch, dev, params, cfg, pc, ports[runtime], transport,
-                quant, seed, runtime)
+                quant, seed, runtime,
+                mport=(manage_port if (runtime, transport) == ("python",
+                                                                "shm")
+                       else None))
             seed += 1
     torch.cuda.synchronize()
     print(f"[store] B adopted vs B store-free cold, ms: {json.dumps(times)}")
@@ -2222,7 +2564,7 @@ def _fleet_requests(port: int, prompts, tag: str, trace_ids, concurrent):
     out = [None] * len(prompts)
 
     def one(i):
-        toks, stamps = _sse_stream(
+        toks, stamps, _per = _sse_stream(
             port, {"prompt": prompts[i], "max_tokens": 32, "temperature": 0},
             headers={"X-Istpu-Trace": trace_ids[i]})
         check(len(toks) == 32, f"{tag} request {i} returned {len(toks)} "
@@ -2255,12 +2597,19 @@ def _fleet_requests(port: int, prompts, tag: str, trace_ids, concurrent):
     return out
 
 
+# the fleet phase's depth: its workers serve the first 8 of the smoke's
+# Llama-3-8B's 32 layers (full width).  At 32 the phase took 79.3 s (its
+# workers' warm-up 16.1 s); the store phase's degraded cases needed the
+# room within the smoke's time limit
+FLEET_LAYERS = 8
+
+
 def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
-                monolith_ttft: dict, port: int) -> dict:
+                port: int) -> dict:
     """The disaggregated fleet at full width, in one process: the port's
     store server on ``port`` backs a prefill worker and a decode worker
     (the port's ``InferenceEngine`` + ``ServingServer`` each, on the
-    phase's Llama-3-8B, lossless pages) behind the port's ``FrontDoor``,
+    model ``params``, lossless pages) behind the port's ``FrontDoor``,
     composed as
     ``local_fleet`` composes them.  8 fresh prompts through the router one
     at a time, then 8 more at once, all streamed: every answer 200 with no
@@ -2460,12 +2809,9 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
               f"oracle {time.perf_counter() - t_oracle:.1f} s")
 
         for tid, n, ttft, tpot, chunks, load_s in rows:
-            mono = monolith_ttft.get(n)
             print(f"[fleet] {tid}: {n} prompt tokens, TTFT {ttft:.1f} ms, "
                   f"TPOT {tpot:.2f} ms through the router; decode worker "
-                  f"store_chunks={chunks}, store_load_s={load_s}"
-                  + (f"; serving-phase monolith TTFT {mono:.1f} ms"
-                     if mono is not None else ""))
+                  f"store_chunks={chunks}, store_load_s={load_s}")
         for name, out, wall, (n_h, mean_h) in (
                 ("one at a time", seq_out, t_seq, handoffs(handoff0, handoff1)),
                 ("all 8 at once", par_out, t_par, handoffs(handoff1, prom))):
@@ -2494,27 +2840,82 @@ def phase_fleet(torch, ca, dev, params, cfg, pc, card: str,
         os.environ.pop("ISTPU_ADMISSION", None)
 
     # the deployment shape: four OS processes (store, prefill worker,
-    # decode worker, router) on the tiny model, the workers on the card
+    # decode worker, router) on the tiny model, the workers on the card;
+    # beside it the serving and long-context examples (tiny, on the card)
     t0 = time.perf_counter()
-    # a session of its own, so a timeout ends the workers it started too
-    run = subprocess.Popen(
-        [sys.executable, "-m", "infinistore_tpu_torch.examples.fleet_processes",
-         "--smoke", "--device", "cuda"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    examples = _examples_start(port)
     try:
-        out, _ = run.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        os.killpg(run.pid, signal.SIGKILL)
-        out, _ = run.communicate()
-    for line in out.splitlines():
-        if line.startswith("[fleet]") and "starting" not in line:
-            print(f"[fleet] four processes: {line}")
-    print(f"[fleet] four-process fleet (store, prefill, decode, router) "
-          f"exited {run.returncode} in {time.perf_counter() - t0:.1f} s")
-    check(run.returncode == 0, f"[fleet] the four-process fleet failed: "
-          f"{out[-3000:]}")
+        # a session of its own, so a timeout ends the workers it started too
+        run = subprocess.Popen(
+            [sys.executable, "-m",
+             "infinistore_tpu_torch.examples.fleet_processes",
+             "--smoke", "--device", "cuda"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        try:
+            out, _ = run.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(run.pid, signal.SIGKILL)
+            out, _ = run.communicate()
+        for line in out.splitlines():
+            if line.startswith("[fleet]") and "starting" not in line:
+                print(f"[fleet] four processes: {line}")
+        print(f"[fleet] four-process fleet (store, prefill, decode, router) "
+              f"exited {run.returncode} in {time.perf_counter() - t0:.1f} s")
+        check(run.returncode == 0, f"[fleet] the four-process fleet failed: "
+              f"{out[-3000:]}")
+        _examples_finish(examples, t0)
+    finally:
+        # a failed check above leaves no example holding the card or the
+        # store's port
+        for proc in examples.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
     return launches
+
+
+def _examples_start(store_port: int) -> dict:
+    """``examples.serving`` on the store server ``store_port`` and
+    ``examples.long_context`` (sp=2 x tp=2, four gloo ranks on the card)
+    as subprocesses, each in a session of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmds = {
+        "serving": ["--service-port", str(store_port), "--device", "cuda"],
+        "long_context": ["--device", "cuda", "--sp", "2", "--tp", "2"],
+    }
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", f"infinistore_tpu_torch.examples.{name}",
+         *args], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for name, args in cmds.items()}
+
+
+def _examples_finish(procs: dict, t0: float) -> None:
+    """Wait for ``_examples_start``'s examples: each must exit 0, the
+    serving example's second engine having adopted chunks from the store,
+    the long-context example's adopted decode matching the engine's own."""
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        lines = out.strip().splitlines()
+        print(f"[examples] {name} exited {proc.returncode} at "
+              f"{time.perf_counter() - t0:.1f} s: " + " | ".join(
+                  line for line in lines[:-1] if not line.startswith("[")))
+        check(proc.returncode == 0 and lines,
+              f"[examples] {name} failed: {out[-3000:]}")
+        res = json.loads(lines[-1])
+        if name == "serving":
+            check(res["reused_chunks"] and res["reused_chunks"] > 0,
+                  f"[examples] serving: the second engine adopted nothing: "
+                  f"{res}")
+        else:
+            print(f"[examples] long_context: {json.dumps(res)}")
+            check(res["matches"], f"[examples] long_context diverged: {res}")
 
 
 # the MoE rule's rank bound: a routing flip may move a token this far down
@@ -3397,7 +3798,9 @@ TP_WORLD_TIMEOUT_S = 600.0
 # Llama-3-8B's 32 layers (full width).  Every collective of a gloo group on
 # one card crosses the host, two to four a layer per step, so the phase's
 # time went with its depth (191.4 s at 32 layers); the smoke's train-mesh
-# phase needed the room within its time limit
+# phase needed the room within its time limit.  8 is as low as it goes: at
+# 4 a rank's float32 draw of a vocabulary matrix outgrows the whole model
+# and the draw check fails
 TP_LAYERS = 8
 
 
@@ -3423,13 +3826,20 @@ def _tp_params(torch, dev, tp_rank: int = 0, tp: int = 1, pp_rank: int = 0,
                        keep_embed=pp_rank == 0, keep_head=pp_rank == pp - 1)
 
 
+def _first_layers(params, cfg, pc, n: int):
+    """The model of ``params``'s first ``n`` layers (views of the same
+    tensors), its config and its cache config."""
+    return ({"embed": params["embed"],
+             "layers": {k: v[:n] for k, v in params["layers"].items()},
+             "ln_out": params["ln_out"], "lm_head": params["lm_head"]},
+            dataclasses.replace(cfg, n_layers=n),
+            dataclasses.replace(pc, n_layers=n))
+
+
 def _tp_model_of(params, pc):
     """The tp phase's model from ``llama3_8b``'s (its first ``TP_LAYERS``
     layers, views of the same tensors), config and cache config."""
-    return ({"embed": params["embed"],
-             "layers": {k: v[:TP_LAYERS] for k, v in params["layers"].items()},
-             "ln_out": params["ln_out"], "lm_head": params["lm_head"]},
-            _tp_cfg(), dataclasses.replace(pc, n_layers=TP_LAYERS))
+    return _first_layers(params, _tp_cfg(), pc, TP_LAYERS)
 
 
 def _tp_entry(rank, world, init_file, backend, task, kw, out_dir):
@@ -5088,7 +5498,7 @@ def main() -> int:
         rec = phase_kernels(torch, np, ca, bench_gpu, dev)
         _mark("kernels")
         params, cfg, pc = llama3_8b(torch, dev)
-        launches, prof, engine, ttft_by_len = phase_model(
+        launches, prof, engine = phase_model(
             torch, ca, bench_gpu, dev, card, params, cfg, pc)
         phase_serve(torch, ca, engine, cfg, card)
         _mark("model, profile, serve")
@@ -5120,7 +5530,8 @@ def main() -> int:
                   f"it)")
             try:
                 store_times = phase_store(torch, ca, dev, params, cfg, pc,
-                                          {"python": port, "native": nport})
+                                          {"python": port, "native": nport},
+                                          store.manage_port)
                 _mark("store")
                 lora_launches = phase_lora(torch, ca, dev, params, cfg, pc,
                                            card, nport)
@@ -5138,7 +5549,8 @@ def main() -> int:
             # the earlier phases' engines are gone: the card holds the
             # weights and the fleet's two caches
             torch.cuda.empty_cache()
-            phase_fleet(torch, ca, dev, params, cfg, pc, card, ttft_by_len,
+            phase_fleet(torch, ca, dev,
+                        *_first_layers(params, cfg, pc, FLEET_LAYERS), card,
                         port)
             _mark("fleet")
         finally:
