@@ -15,7 +15,8 @@ retired request into one canonical stage decomposition:
 * ``store_transfer``    — wall time inside store hops (lookup + load);
 * ``decode_queue``      — the decode worker's pre-admission share
   (router-grain remap; always 0 at worker grain);
-* ``first_token``       — first-token delivery gap past prefill;
+* ``first_token``       — first-token delivery gap past prefill (the
+  ledger's ``first_hold_s``: the decode chunk that samples and shows it);
 * ``per_token_decode``  — steady-state decode + stream delivery;
 * ``unattributed``      — wall clock nothing above claims (stitch gaps,
   router overhead) — reported explicitly, never silently dropped.
@@ -97,6 +98,9 @@ def decompose(rec: Dict[str, Any]) -> Dict[str, float]:
     queue = wf.get("queue_s") or 0.0
     store = wf.get("store_s") or 0.0
     prefill = wf.get("prefill_s") or 0.0
+    # prefilled -> first visible token: the hold for the decode chunk
+    # that samples and shows the first token
+    hold = wf.get("first_hold_s") or 0.0
     decode = wf.get("decode_s") or 0.0
     stream = wf.get("stream_s") or 0.0
     ttft = rec.get("ttft_s")
@@ -112,7 +116,7 @@ def decompose(rec: Dict[str, Any]) -> Dict[str, float]:
     stages["queue_wait"] = queue
     stages["prefill_compute"] = prefill
     stages["store_transfer"] = store
-    stages["first_token"] = first_gap
+    stages["first_token"] = hold + first_gap
     stages["per_token_decode"] = max(0.0, decode + stream - first_gap)
     e2e = rec.get("e2e_s")
     if e2e:

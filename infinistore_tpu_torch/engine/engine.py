@@ -698,9 +698,11 @@ class InferenceEngine:
         self._pool = None
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
-        # per graph kind ("decode", "prefill"): captures and their
+        # per graph kind ("decode", "prefill", "spec"): captures and their
         # seconds, replays and the host seconds spent issuing them (no
-        # sync inside); ``graph_launches`` reads what the replays launched
+        # sync inside: the ``decode.replay`` and ``prefill.graph`` phases'
+        # readings around ``_replay``); ``graph_launches`` reads what the
+        # replays launched
         self.graph_captures = dict.fromkeys(_GRAPH_KINDS, 0)
         self.graph_capture_s = dict.fromkeys(_GRAPH_KINDS, 0.0)
         self.graph_replays = dict.fromkeys(_GRAPH_KINDS, 0)
@@ -1062,13 +1064,17 @@ class InferenceEngine:
         prefix) and a single chunk over an exact prefix beyond those bounds
         (K3 at ``q_offset = P``)."""
         with self._on_engine_stream():
-            prev_done = pp.done
-            n = len(pp.padded[pp.off: pp.off + pp.C])
-            logits = self._op("prefill_chunk", pp, eager,
-                              self._takes_graph(pp, n))
+            prev_done, off = pp.done, pp.off
+            n = len(pp.padded[off: off + pp.C])
+            graph = self._takes_graph(pp, n)
+            logits = self._op("prefill_chunk", pp, eager, graph)
             # the chunk forward + its cache landing: one prefill dispatch
-            # unit for the step profiler
+            # unit for the step profiler; its work the prompt positions it
+            # computed (the pad to a whole page excluded), by route
             _stepprof.note_dispatch("prefill")
+            _stepprof.note_work(
+                "prefill_tokens_graph" if graph else "prefill_tokens_eager",
+                max(0, min(n, pp.S - off)))
             # stream this chunk's complete pages to the store NOW: the
             # gather is queued behind the cache write on the compute
             # stream, the streamer's copies run while the next chunk
@@ -1077,41 +1083,47 @@ class InferenceEngine:
                 lo, hi = max(prev_done, pp.reused), min(pp.done,
                                                         pp.n_complete)
                 if hi > lo:
-                    self._streamer.submit(
-                        self.transfer.gather_pages(self.cache,
-                                                   pp.block_ids[lo:hi]),
-                        pp.keys[lo:hi],
-                    )
+                    with _stepprof.phase("prefill.land"):
+                        self._streamer.submit(
+                            self.transfer.gather_pages(
+                                self.cache, pp.block_ids[lo:hi]),
+                            pp.keys[lo:hi],
+                        )
             if pp.off < len(pp.padded):
                 return None
-            # a copy, and taken now: a graph's logits are rewritten by the
-            # next replay
-            last_logits = logits[0, 0].clone()
+            with _stepprof.phase("prefill.finish"):
+                # a copy, and taken now: a graph's logits are rewritten by
+                # the next replay
+                last_logits = logits[0, 0].clone()
 
-        # finished.  Strict durability joins the pusher so the pages are
-        # durably in the store before the state is visible; relaxed returns
-        # now and store_flush() is the barrier
-        if self.transfer is not None and self.store_durability == "strict":
-            self._streamer.flush()
+                # finished.  Strict durability joins the pusher so the
+                # pages are durably in the store before the state is
+                # visible; relaxed returns now and store_flush() is the
+                # barrier
+                if self.transfer is not None \
+                        and self.store_durability == "strict":
+                    self._streamer.flush()
 
-        # name this sequence's complete-chunk pages so later prefills can
-        # share them in place (no-op for keys already resident)
-        self.pages.register(
-            pp.keys[: pp.n_complete], pp.block_ids[: pp.n_complete]
-        )
-        state = SequenceState(
-            seq_id=self._next_id,
-            tokens=pp.tokens,
-            block_ids=pp.block_ids,
-            chunk_keys=pp.keys,
-            reused_chunks=pp.reused,
-            last_logits=last_logits, adapter_id=pp.adapter_id,
-            local_chunks=pp.local_chunks, store_chunks=pp.store_chunks,
-            store_load_s=pp.store_load_s,
-        )
-        self._next_id += 1
-        self.seqs[state.seq_id] = state
-        return state
+                # name this sequence's complete-chunk pages so later
+                # prefills can share them in place (no-op for keys already
+                # resident)
+                self.pages.register(
+                    pp.keys[: pp.n_complete], pp.block_ids[: pp.n_complete]
+                )
+                state = SequenceState(
+                    seq_id=self._next_id,
+                    tokens=pp.tokens,
+                    block_ids=pp.block_ids,
+                    chunk_keys=pp.keys,
+                    reused_chunks=pp.reused,
+                    last_logits=last_logits, adapter_id=pp.adapter_id,
+                    local_chunks=pp.local_chunks,
+                    store_chunks=pp.store_chunks,
+                    store_load_s=pp.store_load_s,
+                )
+                self._next_id += 1
+                self.seqs[state.seq_id] = state
+                return state
 
     def _op_prefill_chunk(self, pp: PartialPrefill, eager: bool,
                           graph: bool) -> torch.Tensor:
@@ -1127,32 +1139,37 @@ class InferenceEngine:
         # (any row of a chunk that is not the last)
         last = max(0, min(pp.S - 1 - off, n - 1))
         if not graph:
-            logits, kv = self._prefill(
-                self.params, tokens=self._tokens([chunk]),
-                prefix_kv=pp.buf, logits_rows=torch.tensor(
-                    [last], dtype=torch.long, device=self.device),
-                **self._lora_args([pp.adapter_id]))
+            with _stepprof.phase("prefill.inputs"):
+                tokens = self._tokens([chunk])
+                rows = torch.tensor([last], dtype=torch.long,
+                                    device=self.device)
+            with _stepprof.phase("prefill.eager"):
+                logits, kv = self._prefill(
+                    self.params, tokens=tokens, prefix_kv=pp.buf,
+                    logits_rows=rows, **self._lora_args([pp.adapter_id]))
         else:
             logits, kv = self._prefill_chunk(pp, chunk, last, eager)
-            kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
-        n_pg = n // T
-        self.cache = _write_prefill_pages(
-            self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
-        )
-        pp.done += n_pg
-        pp.off = off + C
-        if pp.off < len(pp.padded):
-            # another chunk attends to this KV: grow the bucketed prefix
-            # buffer and append in place
-            need = pp.plen + n
-            ncap = _round_up_pow2(need, C)
-            if pp.buf is None:
-                pp.buf = _pad_seq_axis(kv, ncap)
-            else:
-                if ncap > pp.buf.shape[3]:
-                    pp.buf = _pad_seq_axis(pp.buf, ncap)
-                pp.buf[:, :, :, pp.plen: need] = kv
-            pp.plen = need
+        with _stepprof.phase("prefill.land"):
+            if graph:
+                kv = kv[:, :, :, :n]  # the bucket's pad rows stay out
+            n_pg = n // T
+            self.cache = _write_prefill_pages(
+                self.cache, pp.block_ids[pp.done: pp.done + n_pg], kv, T
+            )
+            pp.done += n_pg
+            pp.off = off + C
+            if pp.off < len(pp.padded):
+                # another chunk attends to this KV: grow the bucketed
+                # prefix buffer and append in place
+                need = pp.plen + n
+                ncap = _round_up_pow2(need, C)
+                if pp.buf is None:
+                    pp.buf = _pad_seq_axis(kv, ncap)
+                else:
+                    if ncap > pp.buf.shape[3]:
+                        pp.buf = _pad_seq_axis(pp.buf, ncap)
+                    pp.buf[:, :, :, pp.plen: need] = kv
+                pp.plen = need
         return logits
 
     @contextlib.contextmanager
@@ -1203,37 +1220,44 @@ class InferenceEngine:
         T = self.pc.block_tokens
         n = len(chunk)
         Cb = _round_up_pow2(n, T)
-        if pp.buf is None:
-            key = ("causal", 0, Cb)
-        elif pp.single:
-            key = ("prefix", _round_up_pow2(pp.plen, T), Cb)
-        else:
-            key = ("prefix", pp.buf.shape[3], Cb)
-        g = self._prefill_graph(key + self._lora_key())
-        g.tokens.copy_(torch.tensor([chunk + [0] * (Cb - n)],
-                                    dtype=torch.int32))
-        g.last.fill_(last)
-        if g.aid is not None:
-            g.aid.fill_(pp.adapter_id)
-        if g.buf is not None:
-            # several partial prefills share the buffer: each chunk brings
-            # its own prefix in (the slack past ``plen`` is masked)
-            g.plen.fill_(pp.plen)
-            g.buf[:, :, :, :pp.plen].copy_(pp.buf[:, :, :, :pp.plen])
-        if eager or self.device.type != "cuda" or not self._capture_ok:
-            self._prefill_body(g)
-        elif g.graph is None:
-            self._prefill_body(g)
-            self._capture_graph(g, lambda: self._prefill_body(g),
-                                f"prefill{key}", "prefill")
-            g.param_ptrs = self._param_ptrs()
-        else:
-            if g.param_ptrs != self._param_ptrs():
+        with _stepprof.phase("prefill.inputs"):
+            if pp.buf is None:
+                key = ("causal", 0, Cb)
+            elif pp.single:
+                key = ("prefix", _round_up_pow2(pp.plen, T), Cb)
+            else:
+                key = ("prefix", pp.buf.shape[3], Cb)
+            g = self._prefill_graph(key + self._lora_key())
+            g.tokens.copy_(torch.tensor([chunk + [0] * (Cb - n)],
+                                        dtype=torch.int32))
+            g.last.fill_(last)
+            if g.aid is not None:
+                g.aid.fill_(pp.adapter_id)
+            if g.buf is not None:
+                # several partial prefills share the buffer: each chunk
+                # brings its own prefix in (the slack past ``plen`` is
+                # masked)
+                g.plen.fill_(pp.plen)
+                g.buf[:, :, :, :pp.plen].copy_(pp.buf[:, :, :, :pp.plen])
+            graphs = not eager and self.device.type == "cuda" \
+                and self._capture_ok
+            replay = graphs and g.graph is not None
+            if replay and g.param_ptrs != self._param_ptrs():
                 # the graph reads the weights (and the bank) it was
                 # captured with
                 raise RuntimeError("the weights or the LoRA bank moved "
                                    "since this prefill graph was captured")
-            self._replay(g, "prefill")
+        with _stepprof.phase("prefill.graph", timed=True) as ph:
+            if replay:
+                self._replay(g, "prefill")
+            else:
+                self._prefill_body(g)
+                if graphs:  # the key's first use: capture it
+                    self._capture_graph(g, lambda: self._prefill_body(g),
+                                        f"prefill{key}", "prefill")
+                    g.param_ptrs = self._param_ptrs()
+        if replay:
+            self.graph_replay_s["prefill"] += ph.wall_s
         return g.logits, g.kv
 
     def _prefill_graph(self, key: tuple) -> "_PrefillGraph":
@@ -1478,9 +1502,12 @@ class InferenceEngine:
         sel = np.concatenate([
             b * full + np.arange(n_pg) for b, n_pg in enumerate(n_pages_each)
         ])
-        logits = self._op("prefill_group", tokens, list(ids_all), sel,
-                          aids + [0] * (Bp - B))
+        with _stepprof.phase("prefill.eager"):
+            logits = self._op("prefill_group", tokens, list(ids_all), sel,
+                              aids + [0] * (Bp - B))
         _stepprof.note_dispatch("prefill")  # one padded group forward
+        _stepprof.note_work("prefill_tokens_eager",
+                            sum(len(p) for p in group))
         last = torch.tensor([len(p) - 1 for p in group], device=self.device)
         last_rows = logits[torch.arange(B, device=self.device), last]
         states = []
@@ -1617,15 +1644,14 @@ class InferenceEngine:
 
     def _replay(self, g, kind: str, times: int = 1) -> None:
         """Replay ``g``'s graph ``times`` times, each adding its captured
-        launches to this thread's counts, and account the replays and
-        their host seconds under ``kind``."""
-        t0 = time.perf_counter()
+        launches to this thread's counts, and count the replays under
+        ``kind`` (the caller adds their host seconds, from the phase that
+        timed them, to ``graph_replay_s``)."""
         for _ in range(times):
             g.graph.replay()
             ca.count_replay(g.captured)
         g.replays += times
         self.graph_replays[kind] += times
-        self.graph_replay_s[kind] += time.perf_counter() - t0
 
     def graph_launches(self, kind: str) -> Dict[str, int]:
         """The kernel launches the replays of the ``kind`` graphs made:
@@ -1641,11 +1667,13 @@ class InferenceEngine:
         """``chunk`` decode steps over ``g``'s buffers.  On the CPU (and
         with ``eager``) the step body runs ``chunk`` times; on the card the
         key's graph replays ``chunk`` times, and a key seen for the first
-        time runs its first step eagerly and is captured after it."""
+        time runs its first step eagerly and is captured after it.  The
+        ``decode.replay`` phase times the replays (or the eager bodies)."""
         g.step.zero_()
         if eager or self.device.type != "cuda" or not self._capture_ok:
-            for _ in range(chunk):
-                self._step(g)
+            with _stepprof.phase("decode.replay"):
+                for _ in range(chunk):
+                    self._step(g)
             return
         done = 0
         if g.graph is None:
@@ -1661,7 +1689,9 @@ class InferenceEngine:
         if g.param_ptrs != self._param_ptrs():
             raise RuntimeError("the weights or the LoRA bank moved since "
                                "this decode graph was captured")
-        self._replay(g, "decode", chunk - done)
+        with _stepprof.phase("decode.replay", timed=True) as ph:
+            self._replay(g, "decode", chunk - done)
+        self.graph_replay_s["decode"] += ph.wall_s
 
     def decode(
         self,
@@ -1775,6 +1805,83 @@ class InferenceEngine:
         ``chip_smoke.py``).  ``collect=True`` (``propose``) also returns,
         per step and row, the exact post-truncation distribution each
         token was drawn from: ``(outs, q [n_steps, B, V] f32)``."""
+        with self._on_engine_stream():
+            with _stepprof.phase("decode.prep"):
+                g, penalized, pen_key = self._decode_inputs(
+                    states, n_steps, sample, temperature, top_k, top_p, rng,
+                    logprobs, presence_penalty, frequency_penalty,
+                    repetition_penalty, gen_start, seed, logit_bias,
+                    pen_cache, collect)
+                B = len(states)
+                logprobs = int(logprobs)
+                out: List[List[int]] = [[] for _ in range(B)]
+                lps: List[List[tuple]] = [[] for _ in range(B)]
+                qs: List[torch.Tensor] = []
+                ctx0 = sum(len(st.tokens) for st in states)
+            remaining = n_steps
+            while remaining > 0:
+                chunk = min(remaining, self.decode_chunk)
+                self._op("decode_chunk", g.key, chunk, eager)
+                # the whole batch advanced a chunk: its work is rows x
+                # steps, and the context each row-step attends over (a row
+                # of L tokens at the chunk's start reads L + 1 .. L + chunk)
+                done = n_steps - remaining
+                _stepprof.note_dispatch("decode")
+                _stepprof.note_tokens(chunk * B)
+                _stepprof.note_sync("decode_tokens")
+                _stepprof.note_work("decode_rows", chunk * B)
+                _stepprof.note_work(
+                    "decode_ctx_tokens",
+                    chunk * (ctx0 + B * done) + B * chunk * (chunk + 1) // 2)
+                with _stepprof.phase("decode.sync"):
+                    host_toks = g.toks[:chunk].cpu().numpy()  # one per chunk
+                with _stepprof.phase("decode.unpack"):
+                    if self._grp is not None:
+                        self.rank_tokens.append(host_toks[:, :B].tolist())
+                    if collect:
+                        qs.append(g.q[:chunk, :B].clone())
+                    for b in range(B):
+                        out[b].extend(int(t) for t in host_toks[:, b])
+                    if logprobs:
+                        h_ch = g.chosen[:chunk].cpu().numpy()  # [chunk, Bp]
+                        h_ti = g.top_id[:chunk].cpu().numpy()  # [.., Bp, k]
+                        h_tl = g.top_lp[:chunk].cpu().numpy()
+                        for b in range(B):
+                            if logprobs_rows is not None \
+                                    and not logprobs_rows[b]:
+                                continue
+                            lps[b].extend(
+                                (float(h_ch[s, b]),
+                                 [(int(h_ti[s, b, j]), float(h_tl[s, b, j]))
+                                  for j in range(logprobs)])
+                                for s in range(chunk)
+                            )
+                remaining -= chunk
+            with _stepprof.phase("decode.unpack"):
+                rows = g.logits[:B].clone()
+                for b, st in enumerate(states):
+                    st.tokens.extend(out[b])
+                    st.last_logits = rows[b]
+                if penalized and pen_cache is not None:
+                    # single entry: one active batch composition at a time
+                    pen_cache.clear()
+                    pen_cache[pen_key] = (
+                        tuple(len(st.tokens) for st in states), g)
+        if collect:
+            return out, torch.cat(qs)
+        if logprobs:
+            return out, lps
+        return out
+
+    def _decode_inputs(self, states, n_steps, sample, temperature, top_k,
+                       top_p, rng, logprobs, presence_penalty,
+                       frequency_penalty, repetition_penalty, gen_start,
+                       seed, logit_bias, pen_cache, collect):
+        """``decode_batch``'s arguments checked, the rows' pages acquired
+        for ``n_steps`` more tokens and their inputs copied into the
+        buffers of their decode-graph key, on the engine's stream; returns
+        the key's ``_DecodeGraph``, whether the batch is penalised and its
+        penalty-cache key."""
         B = len(states)
         if B < 1:
             raise ValueError("decode_batch needs at least one sequence")
@@ -1830,87 +1937,42 @@ class InferenceEngine:
         g = self._decode_graph((Bp, table.shape[1], variant, logprobs,
                                 penalized, self.decode_chunk, collect)
                                + self._lora_key())
-        with self._on_engine_stream():
-            torch.stack([st.last_logits for st in states], out=g.logits[:B])
-            if g.aid is not None:
-                # each row's adapter; pad rows take the base model
-                g.aid.copy_(torch.tensor(
-                    [st.adapter_id for st in states] + [0] * npad,
-                    dtype=torch.int32))
-            g.logits[B:].zero_()
-            g.pos.copy_(torch.from_numpy(np.asarray(
-                [len(st.tokens) for st in states] + [0] * npad, np.int32)))
-            g.table.copy_(torch.from_numpy(table))
-            if variant != "greedy":
-                pad = np.ones(npad, bool)
-                g.greedy.copy_(torch.from_numpy(
-                    np.concatenate([greedy_mask, pad])))
-                g.temp.copy_(torch.from_numpy(np.concatenate(
-                    [temp, pad]).astype(np.float32)))
-                g.top_k.copy_(torch.from_numpy(np.concatenate(
-                    [top_k_v, np.zeros(npad)]).astype(np.int32)))
-                g.top_p.copy_(torch.from_numpy(np.concatenate(
-                    [top_p_v, pad]).astype(np.float32)))
-                gen = rng if rng is not None else self._gen
-                base = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
-                                         device=gen.device))
-                g.rowkey.copy_(_row_keys(seeds + [None] * npad, base))
-            pen_key = None
-            if penalized:
-                pen_key = (
-                    tuple(st.seq_id for st in states),
-                    pres.tobytes(), freq.tobytes(), rep.tobytes(),
-                    tuple(tuple(sorted(b.items())) if b else None
-                          for b in biases),
-                )
-                self._load_penalties(g, states, pen_key, pres, freq, rep,
-                                     biases, gen_start, pen_cache)
-            self._op("decode_begin", g.key)
-            out: List[List[int]] = [[] for _ in range(B)]
-            lps: List[List[tuple]] = [[] for _ in range(B)]
-            qs: List[torch.Tensor] = []
-            remaining = n_steps
-            while remaining > 0:
-                chunk = min(remaining, self.decode_chunk)
-                self._op("decode_chunk", g.key, chunk, eager)
-                # the whole batch advanced a chunk
-                _stepprof.note_dispatch("decode")
-                _stepprof.note_tokens(chunk * B)
-                _stepprof.note_sync("decode_tokens")
-                host_toks = g.toks[:chunk].cpu().numpy()  # one sync/chunk
-                if self._grp is not None:
-                    self.rank_tokens.append(host_toks[:, :B].tolist())
-                if collect:
-                    qs.append(g.q[:chunk, :B].clone())
-                for b in range(B):
-                    out[b].extend(int(t) for t in host_toks[:, b])
-                if logprobs:
-                    h_ch = g.chosen[:chunk].cpu().numpy()   # [chunk, Bp]
-                    h_ti = g.top_id[:chunk].cpu().numpy()   # [chunk, Bp, k]
-                    h_tl = g.top_lp[:chunk].cpu().numpy()
-                    for b in range(B):
-                        if logprobs_rows is not None and not logprobs_rows[b]:
-                            continue
-                        lps[b].extend(
-                            (float(h_ch[s, b]),
-                             [(int(h_ti[s, b, j]), float(h_tl[s, b, j]))
-                              for j in range(logprobs)])
-                            for s in range(chunk)
-                        )
-                remaining -= chunk
-            rows = g.logits[:B].clone()
-        for b, st in enumerate(states):
-            st.tokens.extend(out[b])
-            st.last_logits = rows[b]
-        if penalized and pen_cache is not None:
-            # single entry: one active batch composition at a time
-            pen_cache.clear()
-            pen_cache[pen_key] = (tuple(len(st.tokens) for st in states), g)
-        if collect:
-            return out, torch.cat(qs)
-        if logprobs:
-            return out, lps
-        return out
+        torch.stack([st.last_logits for st in states], out=g.logits[:B])
+        if g.aid is not None:
+            # each row's adapter; pad rows take the base model
+            g.aid.copy_(torch.tensor(
+                [st.adapter_id for st in states] + [0] * npad,
+                dtype=torch.int32))
+        g.logits[B:].zero_()
+        g.pos.copy_(torch.from_numpy(np.asarray(
+            [len(st.tokens) for st in states] + [0] * npad, np.int32)))
+        g.table.copy_(torch.from_numpy(table))
+        if variant != "greedy":
+            pad = np.ones(npad, bool)
+            g.greedy.copy_(torch.from_numpy(
+                np.concatenate([greedy_mask, pad])))
+            g.temp.copy_(torch.from_numpy(np.concatenate(
+                [temp, pad]).astype(np.float32)))
+            g.top_k.copy_(torch.from_numpy(np.concatenate(
+                [top_k_v, np.zeros(npad)]).astype(np.int32)))
+            g.top_p.copy_(torch.from_numpy(np.concatenate(
+                [top_p_v, pad]).astype(np.float32)))
+            gen = rng if rng is not None else self._gen
+            base = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                     device=gen.device))
+            g.rowkey.copy_(_row_keys(seeds + [None] * npad, base))
+        pen_key = None
+        if penalized:
+            pen_key = (
+                tuple(st.seq_id for st in states),
+                pres.tobytes(), freq.tobytes(), rep.tobytes(),
+                tuple(tuple(sorted(b.items())) if b else None
+                      for b in biases),
+            )
+            self._load_penalties(g, states, pen_key, pres, freq, rep,
+                                 biases, gen_start, pen_cache)
+        self._op("decode_begin", g.key)
+        return g, penalized, pen_key
 
     def _op_decode_begin(self, key: tuple) -> None:
         """In a serving group: the leader's inputs of ``key``'s decode graph

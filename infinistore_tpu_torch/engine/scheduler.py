@@ -131,6 +131,10 @@ class Request:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
+    # the last prefill chunk returned the request's state: the ledger
+    # splits t_first - t_admit at it into prefill and the hold until
+    # the first token shows (a decode chunk boundary)
+    t_prefilled: float = 0.0
     # retirement stamp + the ledger's waterfall inputs: accumulated
     # on_token delivery time (slow consumers show up as "stream", not
     # "decode") and per-chunk token-delivery stamps (t_rel, cum_tokens)
@@ -614,48 +618,58 @@ class Scheduler:
                     self._enqueue(r, front=True)
                 self._admission_hold = True  # retry after a retire frees pages
                 return
+            t_prefilled = time.perf_counter()
             for req, st in zip(admit, states):
                 req.state = st
                 if not req.t_admit:
                     # stamped at wave START so the wave's forward counts
                     # as prefill (t_first - t_admit), not queue-wait
                     req.t_admit = t_wave
+                if not req.t_prefilled:
+                    req.t_prefilled = t_prefilled
                 self.active.append(req)
             return
 
     def _retire(self) -> List[Request]:
-        done_now: List[Request] = []
-        still: List[Request] = []
-        now = time.perf_counter()
-        for req in self.active:
-            if not req.t_first and req.output:
-                req.t_first = now
-        for req in self.active:
-            out = req.output
-            hit_eos = bool(req.eos_ids) and not set(req.eos_ids).isdisjoint(out)
-            if req.cancelled or hit_eos or len(out) >= req.max_new_tokens:
-                del out[self._visible_len(req):]
-                del req.lp_data[len(out):]  # aligned 1:1 with output
-                req.done = True
-                self._stream(req, done=True)
+        with _stepprof.phase("sched.retire"):
+            done_now: List[Request] = []
+            still: List[Request] = []
+            now = time.perf_counter()
+            for req in self.active:
+                if not req.t_first and req.output:
+                    req.t_first = now
+            for req in self.active:
+                out = req.output
+                hit_eos = bool(req.eos_ids) \
+                    and not set(req.eos_ids).isdisjoint(out)
+                if req.cancelled or hit_eos or len(out) >= req.max_new_tokens:
+                    del out[self._visible_len(req):]
+                    del req.lp_data[len(out):]  # aligned 1:1 with output
+                    req.done = True
+                    done_now.append(req)
+                else:
+                    still.append(req)
+            # every request's token delivery in one pass, one phase: each
+            # delivery times itself into its request's stream slice
+            with _stepprof.phase("sched.stream"):
+                for req in self.active:
+                    self._stream(req, done=req.done)
+            for req in done_now:
                 self._drop_draft(req)
                 self._drop_spec_state(req)
                 self.engine.release(req.state)
                 self.record_latency(req)
                 self._finish(req, "cancelled" if req.cancelled else "done")
-                done_now.append(req)
-            else:
-                self._stream(req, done=False)
-                still.append(req)
-        self.active = still
-        if done_now:
-            self._admission_hold = False  # pages freed; admission may resume
-            if not any(self._penalized(r) for r in still):
-                # don't pin the dense [B, V] device penalty state after the
-                # batch that needed it retires (its composition key can
-                # never recur — seq ids are monotonic)
-                self._pen_cache.clear()
-        return done_now
+            self.active = still
+            if done_now:
+                # pages freed; admission may resume
+                self._admission_hold = False
+                if not any(self._penalized(r) for r in still):
+                    # don't pin the dense [B, V] device penalty state after
+                    # the batch that needed it retires (its composition key
+                    # can never recur — seq ids are monotonic)
+                    self._pen_cache.clear()
+            return done_now
 
     @staticmethod
     def _penalized(req: Request) -> bool:
@@ -756,15 +770,15 @@ class Scheduler:
         return True
 
     def _spec_dispatch(self, reqs: List[Request], chunk: int) -> bool:
-        t0 = time.perf_counter()
-        with tracing.span("sched.decode_chunk", batch=len(reqs),
-                          chunk=chunk, spec=self.spec_kind):
+        with _stepprof.phase("sched.decode_chunk", timed=True,
+                             batch=len(reqs), chunk=chunk,
+                             spec=self.spec_kind) as ph:
             if self.spec_kind == "ngram":
                 ok = self._ngram_step_batch(reqs, chunk)
             else:
                 ok = self._spec_step_batch(reqs, chunk)
         if ok:
-            self._h_decode_step.observe(time.perf_counter() - t0)
+            self._h_decode_step.observe(ph.wall_s)
         return ok
 
     def _spec_step_batch(self, reqs: List[Request], chunk: int) -> bool:
@@ -892,36 +906,45 @@ class Scheduler:
 
     def _step_inner(self) -> List[Request]:
         if not (self._admission_hold and self.active):
-            self._admit()
-        cancelled_prefill: List[Request] = []
-        still: List[Tuple[Request, PartialPrefill]] = []
-        # degraded-mode chunked-prefill throttle: while a burn watchdog
-        # fires, only this many prefill chunk tokens advance per step
-        # (None = no cap) — decode keeps its TPOT for the protected
-        # lane, prefill queues.  Cancellations always process (they FREE
-        # resources).
-        pf_budget = (self.admission.prefill_token_budget()
-                     if self.admission is not None else None)
-        chunk_cost = self.engine.prefill_chunk or 1
+            with _stepprof.phase("sched.admit"):
+                self._admit()
+        # ``sched.book``: the step's own bookkeeping between the phases
+        # above and below, so that the top-level phases tile the step
+        with _stepprof.phase("sched.book"):
+            cancelled_prefill: List[Request] = []
+            still: List[Tuple[Request, PartialPrefill]] = []
+            # degraded-mode chunked-prefill throttle: while a burn watchdog
+            # fires, only this many prefill chunk tokens advance per step
+            # (None = no cap) — decode keeps its TPOT for the protected
+            # lane, prefill queues.  Cancellations always process (they
+            # FREE resources).
+            pf_budget = (self.admission.prefill_token_budget()
+                         if self.admission is not None else None)
+            chunk_cost = self.engine.prefill_chunk or 1
         for req, pp in self._prefilling:
             if req.cancelled:
-                self.engine.abandon_prefill(pp)
-                req.done = True
-                self._stream(req, done=True)
-                self._finish(req, "cancelled")
-                cancelled_prefill.append(req)
+                with _stepprof.phase("sched.book"):
+                    self.engine.abandon_prefill(pp)
+                    req.done = True
+                    self._stream(req, done=True)
+                    self._finish(req, "cancelled")
+                    cancelled_prefill.append(req)
                 continue
             if pf_budget is not None and pf_budget <= 0:
                 still.append((req, pp))  # over budget: hold this step
                 continue
-            with tracing.bind(req.trace_id), \
-                    _usage.bind_account(self._lane_label(req)), \
-                    tracing.span("sched.prefill_step", req=req.req_id):
+            # the phase outermost, so the bindings' own work counts in it
+            with _stepprof.phase("sched.prefill_step", timed=True,
+                                 trace_id=req.trace_id, req=req.req_id), \
+                    tracing.bind(req.trace_id), \
+                    _usage.bind_account(self._lane_label(req)):
                 st = self.engine.prefill_step(pp)  # ONE chunk per step each
             if pf_budget is not None:
                 pf_budget -= chunk_cost
             if st is not None:
                 req.state = st
+                if not req.t_prefilled:
+                    req.t_prefilled = time.perf_counter()
                 self.active.append(req)
             else:
                 still.append((req, pp))
@@ -931,69 +954,82 @@ class Scheduler:
         if any(r.cancelled for r in self.active):
             # retire cancellations before burning a decode chunk on them
             return cancelled_prefill + self._retire()
-        # chunk lengths are powers of two capped at decode_chunk; a request
-        # whose budget lands mid-chunk decodes to the chunk boundary and
-        # _retire trims the overshoot
-        shortest = min(r.max_new_tokens - len(r.output) for r in self.active)
-        chunk = 1
-        while chunk < shortest and chunk < self.engine.decode_chunk:
-            chunk *= 2
-        chunk = min(chunk, self.engine.decode_chunk)
-        if self.spec is not None and len(self.active) > self.spec_batch:
-            # batch grew past the speculation window: draft pages back to
-            # the pool; lockstep decode already fills the card at depth
-            for r in self.active:
-                self._drop_draft(r)
-        elif (self.spec is not None
-                and all(
-                    r.adapter_id == 0       # the draft carries no adapters
-                    and r.logprobs == 0     # spec emits no logprobs
-                    and not self._penalized(r)   # no penalty math
-                    and r.seed is None      # spec has its own stream
-                    for r in self.active
+        with _stepprof.phase("sched.book"):
+            # chunk lengths are powers of two capped at decode_chunk; a
+            # request whose budget lands mid-chunk decodes to the chunk
+            # boundary and _retire trims the overshoot
+            shortest = min(r.max_new_tokens - len(r.output)
+                           for r in self.active)
+            chunk = 1
+            while chunk < shortest and chunk < self.engine.decode_chunk:
+                chunk *= 2
+            chunk = min(chunk, self.engine.decode_chunk)
+            spec = False
+            if self.spec is not None and len(self.active) > self.spec_batch:
+                # batch grew past the speculation window: draft pages back
+                # to the pool; lockstep decode already fills the card at
+                # depth
+                for r in self.active:
+                    self._drop_draft(r)
+            else:
+                spec = (
+                    self.spec is not None
+                    and all(
+                        r.adapter_id == 0       # the draft carries no adapters
+                        and r.logprobs == 0     # spec emits no logprobs
+                        and not self._penalized(r)   # no penalty math
+                        and r.seed is None      # spec has its own stream
+                        for r in self.active
+                    )
+                    # the fused rounds are one graph per key: every row
+                    # must share the sample mode (temps/top-k/top-p ride as
+                    # per-row vectors)
+                    and len({r.sample for r in self.active}) == 1
                 )
-                # the fused rounds are one graph per key: every row must
-                # share the sample mode (temps/top-k/top-p ride as per-row
-                # vectors)
-                and len({r.sample for r in self.active}) == 1
-                and self._spec_dispatch(self.active, chunk)):
+            # any row asking for logprobs switches the batch to the
+            # collecting graph (fixed top-LOGPROBS_K shape; rows slice to
+            # their own k); any row with penalties switches to the
+            # count-carrying graph
+            want_lp = any(r.logprobs for r in self.active)
+            want_pen = any(self._penalized(r) for r in self.active)
+        if spec and self._spec_dispatch(self.active, chunk):
             # speculation pays when the card is latency-bound: batch=1 by
             # default; spec_batch > 1 runs a small batch in lockstep
             return cancelled_prefill + self._retire()
-        # any row asking for logprobs switches the batch to the collecting
-        # graph (fixed top-LOGPROBS_K shape; rows slice to their own k);
-        # any row with penalties switches to the count-carrying graph
-        want_lp = any(r.logprobs for r in self.active)
-        want_pen = any(self._penalized(r) for r in self.active)
-        t_decode = time.perf_counter()
         try:
-            outs = self.engine.decode_batch(
-                [r.state for r in self.active], chunk,
-                sample=[r.sample for r in self.active],
-                temperature=[r.temperature for r in self.active],
-                top_k=[r.top_k for r in self.active],
-                top_p=[r.top_p for r in self.active],
-                rng=self._rng,
-                logprobs=self.LOGPROBS_K if want_lp else 0,
-                logprobs_rows=(
-                    [bool(r.logprobs) for r in self.active] if want_lp
-                    else None
-                ),
-                presence_penalty=[r.presence_penalty for r in self.active],
-                frequency_penalty=[r.frequency_penalty for r in self.active],
-                repetition_penalty=(
-                    [r.repetition_penalty for r in self.active]
-                ),
-                # generation began after the PROMPT — a shed request's
-                # re-prefilled prior output still counts as generated
-                gen_start=(
-                    [len(r.tokens) for r in self.active] if want_pen
-                    else None
-                ),
-                seed=[r.seed for r in self.active],
-                logit_bias=[r.logit_bias for r in self.active],
-                pen_cache=self._pen_cache,
-            )
+            # the histogram times exactly the decode_batch call, its
+            # arguments included; the span carries the batch and chunk
+            with _stepprof.phase("sched.decode_chunk", timed=True,
+                                 batch=len(self.active), chunk=chunk) as ph:
+                outs = self.engine.decode_batch(
+                    [r.state for r in self.active], chunk,
+                    sample=[r.sample for r in self.active],
+                    temperature=[r.temperature for r in self.active],
+                    top_k=[r.top_k for r in self.active],
+                    top_p=[r.top_p for r in self.active],
+                    rng=self._rng,
+                    logprobs=self.LOGPROBS_K if want_lp else 0,
+                    logprobs_rows=(
+                        [bool(r.logprobs) for r in self.active] if want_lp
+                        else None
+                    ),
+                    presence_penalty=[r.presence_penalty
+                                      for r in self.active],
+                    frequency_penalty=[r.frequency_penalty
+                                       for r in self.active],
+                    repetition_penalty=(
+                        [r.repetition_penalty for r in self.active]
+                    ),
+                    # generation began after the PROMPT — a shed request's
+                    # re-prefilled prior output still counts as generated
+                    gen_start=(
+                        [len(r.tokens) for r in self.active] if want_pen
+                        else None
+                    ),
+                    seed=[r.seed for r in self.active],
+                    logit_bias=[r.logit_bias for r in self.active],
+                    pen_cache=self._pen_cache,
+                )
         except MemoryError:
             # decode-time page exhaustion: shed the newest request back to
             # pending (its pages free now; its prompt + output re-prefill on
@@ -1007,16 +1043,15 @@ class Scheduler:
             self._enqueue(victim, front=True)
             self._admission_hold = True
             return cancelled_prefill
-        self._h_decode_step.observe(time.perf_counter() - t_decode)
-        tracing.add_stage("sched.decode_chunk", time.perf_counter() - t_decode,
-                          batch=len(self.active), chunk=chunk)
-        if want_lp:
-            outs, lps = outs
-            for req, lp in zip(self.active, lps):
-                if req.logprobs:
-                    req.lp_data.extend(lp)
-        for req, toks in zip(self.active, outs):
-            req.output.extend(toks)
+        with _stepprof.phase("sched.book"):
+            self._h_decode_step.observe(ph.wall_s)
+            if want_lp:
+                outs, lps = outs
+                for req, lp in zip(self.active, lps):
+                    if req.logprobs:
+                        req.lp_data.extend(lp)
+            for req, toks in zip(self.active, outs):
+                req.output.extend(toks)
         return cancelled_prefill + self._retire()
 
     def fault_reset(self) -> List[Request]:

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -312,7 +313,9 @@ def run_body(target: InferenceEngine, g: _RoundGraph, body: _Body,
     if g.ptrs != _ptrs(engines):
         raise RuntimeError("a paged cache or the weights moved since this "
                            "round graph was captured")
+    t0 = time.perf_counter()
     target._replay(body, "spec", times - done)
+    target.graph_replay_s["spec"] += time.perf_counter() - t0
 
 
 def round_replay_equals_eager(target: InferenceEngine, g: _RoundGraph,

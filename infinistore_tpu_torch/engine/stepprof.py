@@ -42,7 +42,22 @@ per scheduler step:
 * **store-hop stages** — when a step moved pages, the transfer's
   ``last_push_stages`` / ``last_load_stages`` breakdown rides along
   (best-effort: pushes commit on the streamer thread, so a stage dict
-  may land one step late).
+  may land one step late);
+* **host phases** — ``phase(name)`` around the host work of the step
+  (``sched.*``, ``prefill.*``, ``decode.*``): wall and engine-thread CPU
+  seconds per phase under ``phases``; the engine loop's phases between
+  steps (``loop.*``) land in the NEXT step's record as ``loop``.  Each
+  phase is also a span of the active request trace and, while
+  ``torch.profiler`` records, a ``record_function`` range in the device
+  trace; ``t0_ns``/``t1_ns`` (the step's and each phase's) are on the
+  profiler's clock (``time.time_ns``), so records join the device
+  trace's intervals;
+* **work** — what the step's dispatches computed, counted where they are
+  launched (``note_work``): ``prefill_tokens_graph`` /
+  ``prefill_tokens_eager`` (uncached prompt positions by route, pads
+  excluded), ``decode_rows`` (real rows x steps) and
+  ``decode_ctx_tokens`` (the context each of those row-steps attends
+  over).
 
 Records live in a bounded ring (``ISTPU_STEPPROF_RING``, default 256),
 exported at the serving front-end's ``GET /debug/engine`` (``?limit=``),
@@ -53,9 +68,9 @@ request's own ``http.request`` trace, so one stitched Perfetto file runs
 HTTP handler → scheduler → engine.step → kv store hop → device dispatch
 under one trace id.
 
-Hooks (``note_dispatch`` / ``note_tokens`` / ``count_trace``) follow the
-tracing module's contract: with no active step record they cost one
-contextvar read and nothing else.
+Hooks (``note_dispatch`` / ``note_tokens`` / ``note_work`` /
+``count_trace`` / ``phase``) follow the tracing module's contract: with no
+active step record they cost one contextvar read and nothing else.
 """
 
 from __future__ import annotations
@@ -175,6 +190,150 @@ def note_sync(kind: str, n: int = 1) -> None:
         s[kind] = s.get(kind, 0) + n
 
 
+def note_work(kind: str, n: int) -> None:
+    """Count ``n`` units of work ``kind`` (``prefill_tokens_graph``,
+    ``prefill_tokens_eager``, ``decode_rows``, ``decode_ctx_tokens``)
+    launched by the active step.  One contextvar read when inactive."""
+    rec = _ACTIVE.get()
+    if rec is not None:
+        w = rec["work"]
+        w[kind] = w.get(kind, 0) + n
+
+
+# -- phases: host time inside a step and in the engine loop between steps --
+
+_PROFILING: Optional[Callable[[], bool]] = None
+_RECORD_FUNCTION = None
+
+
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` (Kineto) records on this thread."""
+    global _PROFILING, _RECORD_FUNCTION
+    if _PROFILING is None:
+        import torch
+        from torch.profiler import record_function
+
+        _RECORD_FUNCTION = record_function
+        _PROFILING = torch._C._autograd._profiler_enabled
+    return _PROFILING()
+
+
+def _phase_table(raw: Dict[str, list], off: int) -> Dict[str, dict]:
+    """A step's (or the loop's) raw phase sums -> the record's form:
+    entries, wall and CPU seconds, first start and last end on the
+    profiler's clock."""
+    return {name: {"n": n, "wall_s": round(w * 1e-9, 6),
+                   "cpu_s": round(c * 1e-9, 6),
+                   "t0_ns": t0 + off, "t1_ns": t1 + off}
+            for name, (n, w, c, t0, t1) in raw.items()}
+
+
+class _Bare:
+    """What ``phase`` returns where it records nothing."""
+
+    __slots__ = ()
+    wall_s = 0.0
+
+    def __enter__(self) -> "_Bare":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_BARE = _Bare()
+
+
+def phase(name: str, prof: Optional["StepProfiler"] = None,
+          timed: bool = False, trace_id: Optional[str] = None, **args):
+    """``with phase(name, **args):`` times a host phase once
+    (``perf_counter_ns`` and ``thread_time_ns`` on entry and exit) and
+    feeds every sink from that one pair of readings:
+
+    * the active step record: ``rec["phases"][name]`` sums entries, wall
+      and engine-thread CPU seconds; with no active record but ``prof`` (a
+      ``StepProfiler``) given, the phase piles into that profiler's loop
+      sums, which the NEXT step's record takes as ``rec["loop"]``;
+    * the active request trace (``tracing.add_span_abs``), or the trace
+      named by ``trace_id``: the phase is a span there, ``args`` its
+      arguments;
+    * while ``torch.profiler`` records, a ``record_function(name)`` range
+      inside it: the phase shows in the Kineto trace as a CPU range, on
+      the device operations' clock.
+
+    The wall readings hold the profiler's range and the lookup of
+    ``trace_id``'s trace, so the time those take (they may wait for the
+    interpreter lock) counts in the phase rather than between phases.
+    CPU seconds are as fine as the host's thread clock, which steps by
+    10 ms on some hosts: read them as sums over many entries.
+
+    ``timed=True`` phases stand in for a timer and a span that serving
+    keeps with the step profiler off: they read ``perf_counter_ns`` and
+    add the span even without a record.  Every other phase with no
+    record (and no enabled ``prof``) costs one contextvar read.  The
+    returned object's ``wall_s`` holds the phase's wall seconds after
+    exit (0.0 when it was not timed)."""
+    rec = _ACTIVE.get()
+    if rec is not None:
+        return _Phase(name, rec["phases"], trace_id, args)
+    if prof is not None and prof.enabled:
+        return _Phase(name, prof._loop, trace_id, args)
+    if timed:
+        return _Phase(name, None, trace_id, args)
+    return _BARE
+
+
+class _Phase:
+    """One timed phase (see ``phase``); ``into`` is the raw sums it adds
+    to, None for a timed phase outside any record."""
+
+    __slots__ = ("name", "into", "trace_id", "args", "wall_s", "_t0",
+                 "_c0", "_rf", "_tr")
+
+    def __init__(self, name: str, into: Optional[Dict[str, list]],
+                 trace_id: Optional[str], args: Dict[str, Any]):
+        self.name = name
+        self.into = into
+        self.trace_id = trace_id
+        self.args = args
+        self.wall_s = 0.0
+
+    def __enter__(self) -> "_Phase":
+        self._c0 = time.thread_time_ns() if self.into is not None else 0
+        self._t0 = time.perf_counter_ns()
+        self._rf = None
+        if _profiling():
+            self._rf = _RECORD_FUNCTION(self.name)
+            self._rf.__enter__()
+        self._tr = (tracing.TRACER.live(self.trace_id)
+                    if self.trace_id else None)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        t1 = time.perf_counter_ns()
+        t0 = self._t0
+        into = self.into
+        if into is not None:
+            cpu = time.thread_time_ns() - self._c0
+            e = into.get(self.name)
+            if e is None:
+                into[self.name] = [1, t1 - t0, cpu, t0, t1]
+            else:
+                e[0] += 1
+                e[1] += t1 - t0
+                e[2] += cpu
+                e[4] = t1
+        self.wall_s = (t1 - t0) * 1e-9
+        if self._tr is not None:
+            self._tr.add(self.name, t0 * 1e-9, t1 * 1e-9, self.args)
+        elif not self.trace_id:
+            tracing.add_span_abs(self.name, t0 * 1e-9, t1 * 1e-9,
+                                 **self.args)
+        return False
+
+
 def current_step() -> Optional[int]:
     """The active step record's id (None outside a profiled step) — the
     scheduler stamps it onto a request at RETIREMENT, before the ledger
@@ -267,6 +426,9 @@ class StepProfiler:
         self._mem = mem_reader if mem_reader is not None else \
             default_mem_reader
         self._sentinel = sentinel
+        # the engine loop's phases since the last step started (raw sums,
+        # ``phase(..., prof=self)``): the next step's record takes them
+        self._loop: Dict[str, list] = {}
         self.steps = 0
         # lifetime aggregates behind summary()/the metric callbacks
         self._by_kind: Dict[str, int] = {}
@@ -386,6 +548,8 @@ class StepProfiler:
             "syncs": {},
             "retraces": {},
             "sampled": sampled,
+            "phases": {},
+            "work": {},
         }
         if scheduler is not None:
             rec["batch"] = {
@@ -396,13 +560,31 @@ class StepProfiler:
         spec0 = self._spec_counts(scheduler)
         transfer, push0, load0 = self._stage_ids(scheduler)
         compiles0, compile_s0 = _COMPILES, _COMPILE_S
+        loop, self._loop = self._loop, {}
+        rf = None
+        if _profiling():
+            rf = _RECORD_FUNCTION(f"engine.step#{step_id}")
+            rf.__enter__()
+        p_ns = time.perf_counter_ns()
+        # the offset from ``perf_counter_ns`` to the clock the profiler's
+        # events use (``time.time_ns``: Kineto stamps CPU ranges on
+        # CLOCK_REALTIME), taken anew each step so a step of the wall
+        # clock is picked up
+        rec["t0_ns"] = w_ns = time.time_ns()
+        off = w_ns - p_ns
+        if loop:
+            rec["loop"] = _phase_table(loop, off)
         token = _ACTIVE.set(rec)
         t0 = self._clock()
         try:
             yield rec
         finally:
             t1 = self._clock()
+            rec["t1_ns"] = time.perf_counter_ns() + off
+            if rf is not None:
+                rf.__exit__(None, None, None)
             _ACTIVE.reset(token)
+            rec["phases"] = _phase_table(rec["phases"], off)
             self._finish(rec, scheduler, kind_hint, t0, t1, sampled,
                          spec0, transfer, push0, load0,
                          compiles0, compile_s0)

@@ -13,14 +13,18 @@ already keeps:
 * ``queue_s``  — submit → prefill start (admission);
 * ``store_s``  — wall time of the store hops inside prefill
   (prefix lookup + page load, measured by the engine);
-* ``prefill_s`` — prefill start → first visible token, minus the store
-  share (the compute half of TTFT);
+* ``prefill_s`` — prefill start → the last prefill chunk returning the
+  request's state, minus the store share (the compute half of TTFT);
+* ``first_hold_s`` — that state → the first visible token: the decode
+  chunk that samples the first token and the boundary that shows it
+  (0 without the scheduler's ``t_prefilled`` stamp: then ``prefill_s``
+  runs to the first visible token);
 * ``decode_s`` — first token → retirement, minus the stream share;
 * ``stream_s`` — accumulated time inside the ``on_token`` delivery
   callback (slow SSE consumers and handler-queue backpressure land
   here, not in "decode").
 
-The five slices sum to the end-to-end latency, so ``shares`` is a
+The six slices sum to the end-to-end latency, so ``shares`` is a
 waterfall, not a soup of overlapping timers.
 
 Records live in a bounded ring (``ISTPU_LEDGER_RING``, default 256) and
@@ -68,6 +72,7 @@ def build_record(req, outcome: str,
     t_admit = req.t_admit or None
     t_first = req.t_first or None
     t_done = req.t_done or None
+    t_prefilled = getattr(req, "t_prefilled", 0.0) or None
     n_out = len(req.output)
     e2e = (t_done - t_submit) if t_done else None
     ttft = (t_first - t_submit) if t_first else None
@@ -84,15 +89,22 @@ def build_record(req, outcome: str,
     # end-to-end wall time (stream time is carved OUT of decode, store
     # time OUT of prefill), so the slices sum to e2e
     queue_s = ((t_admit or t_done or t_submit) - t_submit)
-    prefill_s = max(0.0, (t_first - t_admit) - store_s) \
-        if t_first and t_admit else 0.0
+    # prefill start -> first visible token, minus the store share, split
+    # where the last chunk returned the state: prefill before it, the hold
+    # until the first token shows (a chunk boundary) after it
+    prefill_s = first_hold_s = 0.0
+    if t_first and t_admit:
+        prefill_s = max(0.0, (t_first - t_admit) - store_s)
+        if t_prefilled:
+            first_hold_s = min(prefill_s, t_first - t_prefilled)
+            prefill_s -= first_hold_s
     stream_s = getattr(req, "t_stream_s", 0.0)
     decode_s = max(0.0, (t_done - t_first) - stream_s) \
         if t_done and t_first else 0.0
     waterfall = {
         "queue_s": _r(queue_s), "store_s": _r(store_s),
-        "prefill_s": _r(prefill_s), "decode_s": _r(decode_s),
-        "stream_s": _r(stream_s),
+        "prefill_s": _r(prefill_s), "first_hold_s": _r(first_hold_s),
+        "decode_s": _r(decode_s), "stream_s": _r(stream_s),
     }
     total = sum(v for v in waterfall.values() if v) or 1.0
     shares = {k[:-2]: _r((waterfall[k] or 0.0) / total, 4) for k in waterfall}

@@ -66,6 +66,7 @@ from typing import Any, Dict, List, Optional
 from .admission import AdmissionShed as _AdmissionShed
 from .admission import retry_after_header as _retry_after_header
 from .engine import Scheduler
+from .engine.stepprof import phase as _phase
 from .ledger import RequestLedger
 from .utils import metrics as _metrics
 from .utils import resilience as _resilience
@@ -517,6 +518,9 @@ class ServingServer:
     # -- engine thread --
 
     def _engine_loop(self) -> None:
+        # the loop's host phases between steps (loop.*) land in the step
+        # profiler's next record as ``loop``
+        prof = self.stepprof
         while True:
             if not self.sched.has_work and self.engine.transfer is not None:
                 # the batch just drained: join the store streamer so
@@ -526,7 +530,8 @@ class ServingServer:
                 # must not block submissions from being STAGED (they are
                 # picked up right after the join).
                 try:
-                    with tracing.trace("engine.store_flush"):
+                    with _phase("loop.flush", prof), \
+                            tracing.trace("engine.store_flush"):
                         self.engine.store_flush()
                     self._degraded_reason = None
                 except Exception as e:  # noqa: BLE001
@@ -542,7 +547,7 @@ class ServingServer:
                         e, _resilience.transport_errors()
                     ):
                         br.record_failure()
-            with self._cv:
+            with _phase("loop.wait", prof), self._cv:
                 while not (self._staged or self._cancels or self._stop
                            or self.sched.has_work):
                     self._cv.wait()
@@ -561,15 +566,16 @@ class ServingServer:
                 # popped items keep counting toward the admission depth
                 # until the scheduler owns them (see _over_depth_locked)
                 self._submitting += len(staged)
-            for rid in cancels:
-                self.sched.cancel(rid)
-                self._queues.pop(rid, None)
-            for item in staged:
-                try:
-                    self._submit_to_sched(item)
-                finally:
-                    with self._cv:
-                        self._submitting -= 1
+            with _phase("loop.intake", prof):
+                for rid in cancels:
+                    self.sched.cancel(rid)
+                    self._queues.pop(rid, None)
+                for item in staged:
+                    try:
+                        self._submit_to_sched(item)
+                    finally:
+                        with self._cv:
+                            self._submitting -= 1
             if self.sched.has_work:
                 try:
                     # one trace per scheduler step: the prefill/decode
@@ -577,14 +583,15 @@ class ServingServer:
                     # into a step-granular timeline in /debug/traces
                     with tracing.trace("engine.step"):
                         retired = self.sched.step()
-                    for req in retired:
-                        with self.metrics.lock:
-                            # handler threads increment completed too (the
-                            # echo shortcut), so the counter update needs
-                            # the lock
-                            self.stats["completed"] += 1
-                            self.stats["tokens"] += len(req.output)
-                        self._queues.pop(req.req_id, None)
+                    with _phase("loop.retired", prof):
+                        for req in retired:
+                            with self.metrics.lock:
+                                # handler threads increment completed too
+                                # (the echo shortcut), so the counter
+                                # update needs the lock
+                                self.stats["completed"] += 1
+                                self.stats["tokens"] += len(req.output)
+                            self._queues.pop(req.req_id, None)
                 except Exception as e:
                     # last-resort fault path (validation keeps bad requests
                     # out, so this is an engine/runtime failure): the
